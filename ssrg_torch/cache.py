@@ -1,0 +1,63 @@
+"""Disk cache of the propagated hop stack (counterpart of the precompute
+half of ``ssrg_tpu/cache.py``).
+
+The file name ``hops_<key>.npz`` and the fingerprint that makes ``<key>``
+are the reference's, so the two packages read each other's caches. Saving
+and loading model parameters comes with the training slice (ROADMAP.md).
+"""
+
+from __future__ import annotations
+
+import hashlib
+import os
+import os.path as osp
+from typing import Optional
+
+import numpy as np
+import scipy.sparse as sp
+import torch
+
+from ssrg_torch.utils import DeviceLike, resolve_device
+
+
+def _graph_fingerprint(adj: sp.spmatrix, x: np.ndarray, extra: str) -> str:
+    csr = adj.tocsr()
+    h = hashlib.sha256()
+    h.update(str(csr.shape).encode())
+    h.update(csr.indptr[:: max(1, len(csr.indptr) // 1024)].tobytes())
+    h.update(csr.indices[:: max(1, len(csr.indices) // 4096)].tobytes())
+    h.update(np.asarray(csr.data[:4096], np.float32).tobytes())
+    xs = np.asarray(x, np.float32)
+    h.update(xs[:: max(1, xs.shape[0] // 256)].tobytes())
+    h.update(extra.encode())
+    return h.hexdigest()[:24]
+
+
+def cached_propagate(
+    adj_norm: sp.spmatrix,
+    x: np.ndarray,
+    prop_steps: int,
+    cache_dir: Optional[str],
+    engine: str = "auto",
+    tag: str = "",
+    device: DeviceLike = "cuda",
+) -> torch.Tensor:
+    """K-hop propagation with a disk cache of the result; returns the hop
+    stack ``[K+1, N, F]`` on ``device``."""
+    from ssrg_torch.ops.propagate import propagate
+    from ssrg_torch.ops.sparse import device_adjacency
+
+    dev = resolve_device(device)
+    path = None
+    if cache_dir is not None:
+        os.makedirs(cache_dir, exist_ok=True)
+        key = _graph_fingerprint(adj_norm, x, f"{prop_steps}|{tag}")
+        path = osp.join(cache_dir, f"hops_{key}.npz")
+        if osp.exists(path):
+            with np.load(path) as z:
+                return torch.as_tensor(z["hops"], device=dev)
+    adj_dev = device_adjacency(adj_norm, engine, device=dev)
+    hops = propagate(adj_dev, x, prop_steps, device=dev)
+    if path is not None:
+        np.savez(path, hops=hops.cpu().numpy())
+    return hops

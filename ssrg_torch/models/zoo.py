@@ -1,0 +1,191 @@
+"""Model zoo (counterpart of ``ssrg_tpu/models/zoo.py``): the precompute
+models as {graph op, message op, head} compositions.
+
+| model | graph_op | msg_op                        | head   |
+|-------|----------|-------------------------------|--------|
+| sgc   | sym      | last                          | LogReg |
+| ssgc  | sym      | mean                          | LogReg |
+| sign  | sym      | proj_concat (per-hop MLP)     | MLP    |
+| gbp   | sym      | simple_weighted (alpha decay) | MLP    |
+| gamlp | sym      | learnable_weighted ("jk")     | MLP    |
+| nafs  | sym      | over_smooth_dis_weighted      | LogReg |
+
+The other models of the reference (gcn, clean_train, wavelet, magnet,
+two_dir, two_order) and graph ops other than ``sym`` raise
+``NotImplementedError`` naming the ROADMAP.md item that ports them.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Any, Callable, Dict, Optional
+
+import scipy.sparse as sp
+import torch
+from torch import nn
+
+from ssrg_torch.configs.config import ModelConfig
+from ssrg_torch.models.heads import (
+    TRAINING_SLICE,
+    LogisticRegression,
+    MultiLayerPerceptron,
+)
+from ssrg_torch.ops import normalize
+from ssrg_torch.ops.combine import (
+    LEARNABLE_AGGR_TYPES,
+    ProjectedConcatMessageOp,
+    make_message_op,
+)
+
+SPECTRAL_SLICE = "ROADMAP.md, queue item 6 (spectral / complex models)"
+
+GRAPH_OPS: Dict[str, Callable[[sp.spmatrix, ModelConfig], Any]] = {
+    "sym": lambda adj, cfg: normalize.sym_norm(adj, cfg.r),
+}
+# graph_op None is the featureless path of clean_train
+_UNPORTED_GRAPH_OPS = {
+    None: TRAINING_SLICE, "ppr": SPECTRAL_SLICE, "magnetic": SPECTRAL_SLICE,
+    "magnetic_ppr": SPECTRAL_SLICE, "two_dir": SPECTRAL_SLICE,
+    "fast_ppr": SPECTRAL_SLICE, "two_order": SPECTRAL_SLICE,
+}
+
+
+class PrecomputeModel(nn.Module):
+    """The trainable part of a precompute model: an optional in-forward
+    message op, then the head. ``inputs`` is ``[n, D]`` when aggregation
+    happened at precompute time, or the hop stack ``[K+1, n, F]`` when the
+    message op is learnable."""
+
+    def __init__(self, msg_op: Optional[nn.Module] = None, head: nn.Module = None):
+        super().__init__()
+        self.msg_op = msg_op
+        self.head = head
+
+    def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
+        if self.msg_op is not None:
+            self.msg_op.reset_parameters(generator)
+        self.head.reset_parameters(generator)
+
+    def forward(self, inputs):
+        x = inputs if self.msg_op is None else self.msg_op(inputs)
+        return self.head(x)
+
+
+@dataclass
+class ModelSpec:
+    """Declarative model description consumed by the task layer."""
+
+    name: str
+    graph_op: Optional[str]
+    module: PrecomputeModel
+    aggr_type: Optional[str] = None
+    naive: bool = False
+    spectral: bool = False
+    prop_steps: int = 3
+
+    @property
+    def pre_msg_learnable(self) -> bool:
+        """Learnable aggregation runs per batch, in forward."""
+        return self.aggr_type in LEARNABLE_AGGR_TYPES
+
+    def construct_adj(self, adj: sp.spmatrix, cfg: ModelConfig):
+        if self.graph_op in _UNPORTED_GRAPH_OPS:
+            raise NotImplementedError(f"graph op {self.graph_op!r} is not ported "
+                                      f"yet: {_UNPORTED_GRAPH_OPS[self.graph_op]}")
+        return GRAPH_OPS[self.graph_op](adj, cfg)
+
+
+def _mlp(cfg: ModelConfig, feat_dim: int, output_dim: int) -> MultiLayerPerceptron:
+    return MultiLayerPerceptron(
+        feat_dim=feat_dim,
+        hidden_dim=cfg.hidden_dim,
+        output_dim=output_dim,
+        num_layers=cfg.num_layers,
+        dropout=cfg.dropout,
+        bn=cfg.use_bn,
+        dtype=cfg.dtype,
+    )
+
+
+def _spec(name: str, cfg: ModelConfig, aggr_type: str, msg_op: nn.Module,
+          head: nn.Module) -> ModelSpec:
+    return ModelSpec(name=name, graph_op="sym", aggr_type=aggr_type,
+                     prop_steps=cfg.prop_steps,
+                     module=PrecomputeModel(msg_op=msg_op, head=head))
+
+
+def make_sgc(cfg: ModelConfig, feat_dim: int, output_dim: int) -> ModelSpec:
+    """SGC: sym norm -> last hop -> logistic regression."""
+    return _spec("sgc", cfg, "last", make_message_op("last"),
+                 LogisticRegression(feat_dim, output_dim))
+
+
+def make_ssgc(cfg: ModelConfig, feat_dim: int, output_dim: int) -> ModelSpec:
+    """SSGC: mean over hops 0..K -> logistic regression."""
+    return _spec("ssgc", cfg, "mean", make_message_op("mean"),
+                 LogisticRegression(feat_dim, output_dim))
+
+
+def make_sign(cfg: ModelConfig, feat_dim: int, output_dim: int) -> ModelSpec:
+    """SIGN: per-hop MLP projections, concat, MLP head."""
+    msg = ProjectedConcatMessageOp(
+        hidden_dim=cfg.hidden_dim, num_layers=cfg.num_layers, feat_dim=feat_dim,
+        prop_steps=cfg.prop_steps, dropout=cfg.dropout,
+    )
+    return _spec("sign", cfg, "proj_concat", msg, _mlp(cfg, msg.out_dim, output_dim))
+
+
+def make_gbp(cfg: ModelConfig, feat_dim: int, output_dim: int) -> ModelSpec:
+    """GBP: alpha-decay weighted hops, MLP head."""
+    msg = make_message_op("simple_weighted", combination_type="alpha",
+                          alpha=cfg.message_alpha)
+    return _spec("gbp", cfg, "simple_weighted", msg, _mlp(cfg, feat_dim, output_dim))
+
+
+def make_gamlp(cfg: ModelConfig, feat_dim: int, output_dim: int) -> ModelSpec:
+    """GAMLP: JK-style learnable hop attention, MLP head."""
+    msg = make_message_op("learnable_weighted", combination_type="jk",
+                          prop_steps=cfg.prop_steps, feat_dim=feat_dim)
+    return _spec("gamlp", cfg, "learnable_weighted", msg,
+                 _mlp(cfg, feat_dim, output_dim))
+
+
+def make_nafs(cfg: ModelConfig, feat_dim: int, output_dim: int) -> ModelSpec:
+    """NAFS: over-smoothing-distance hop weights, logistic regression."""
+    return _spec("nafs", cfg, "over_smooth_dis_weighted",
+                 make_message_op("over_smooth_dis_weighted"),
+                 LogisticRegression(feat_dim, output_dim))
+
+
+def _unported(name: str, where: str):
+    def ctor(cfg: ModelConfig, feat_dim: int, output_dim: int) -> ModelSpec:
+        raise NotImplementedError(f"model {name!r} is not ported yet: {where}")
+
+    return ctor
+
+
+MODEL_REGISTRY: Dict[str, Callable[[ModelConfig, int, int], ModelSpec]] = {
+    "sgc": make_sgc,
+    "ssgc": make_ssgc,
+    "sign": make_sign,
+    "gbp": make_gbp,
+    "gamlp": make_gamlp,
+    "nafs": make_nafs,
+    "gcn": _unported("gcn", TRAINING_SLICE),
+    "clean_train": _unported("clean_train", TRAINING_SLICE),
+    "wavelet": _unported("wavelet", SPECTRAL_SLICE),
+    "magnet": _unported("magnet", SPECTRAL_SLICE),
+    "two_dir": _unported("two_dir", SPECTRAL_SLICE),
+    "two_order": _unported("two_order", SPECTRAL_SLICE),
+}
+
+
+def load_model(cfg: ModelConfig, feat_dim: int, output_dim: int) -> ModelSpec:
+    """Factory keyed on ``cfg.model_name``."""
+    try:
+        ctor = MODEL_REGISTRY[cfg.model_name]
+    except KeyError:
+        raise ValueError(
+            f"unknown model {cfg.model_name!r}; available: {sorted(MODEL_REGISTRY)}"
+        ) from None
+    return ctor(cfg, feat_dim, output_dim)

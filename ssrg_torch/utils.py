@@ -1,0 +1,72 @@
+"""Small helpers shared by the port: device resolution and the parameter
+initializers of the reference's flax modules, drawn from an explicit
+``torch.Generator``."""
+
+from __future__ import annotations
+
+import math
+from typing import Optional, Union
+
+import torch
+from torch import nn
+
+DeviceLike = Union[str, torch.device]
+
+# std of a unit normal truncated to [-2, 2] (jax.nn.initializers' constant)
+_TRUNC_STD = 0.87962566103423978
+
+
+@torch.no_grad()
+def variance_scaling_(
+    t: torch.Tensor, scale: float, mode: str, distribution: str,
+    fan_in: int, fan_out: int, generator: Optional[torch.Generator] = None,
+) -> torch.Tensor:
+    """In-place ``jax.nn.initializers.variance_scaling``: variance
+    ``scale / fan`` with fan ``fan_in`` or the mean of ``fan_in`` and
+    ``fan_out``, drawn ``uniform`` or ``truncated_normal`` (at two
+    standard deviations)."""
+    fan = {"fan_in": fan_in, "fan_avg": (fan_in + fan_out) / 2}[mode]
+    var = scale / max(1.0, fan)
+    if distribution == "uniform":
+        lim = math.sqrt(3.0 * var)
+        return t.uniform_(-lim, lim, generator=generator)
+    if distribution == "truncated_normal":
+        std = math.sqrt(var) / _TRUNC_STD
+        edge = math.erf(2.0 / math.sqrt(2.0))  # 2 * Phi(2) - 1
+        t.uniform_(-edge, edge, generator=generator).erfinv_()
+        return t.mul_(std * math.sqrt(2.0))
+    raise ValueError(f"unknown distribution {distribution!r}")
+
+
+def init_dense_(layer: nn.Linear, scale: float = 1.0, mode: str = "fan_in",
+                distribution: str = "truncated_normal",
+                generator: Optional[torch.Generator] = None) -> None:
+    """Initialize a Linear as a flax ``Dense``: variance-scaled kernel
+    (default lecun_normal, flax's own default) and zero bias."""
+    variance_scaling_(layer.weight, scale, mode, distribution,
+                      fan_in=layer.in_features, fan_out=layer.out_features,
+                      generator=generator)
+    with torch.no_grad():
+        layer.bias.zero_()
+
+
+def init_dense_xavier_relu_(layer: nn.Linear,
+                            generator: Optional[torch.Generator] = None) -> None:
+    """Xavier-uniform with the relu gain, the heads' kernel init (the
+    reference's ``reset_parameters``)."""
+    init_dense_(layer, 2.0, "fan_avg", "uniform", generator)
+
+
+def resolve_device(device: DeviceLike = "cuda") -> torch.device:
+    """The device an entry point runs on. ``cuda`` is the default of every
+    entry point; asking for it without a usable card raises instead of
+    running on the host."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "device 'cuda' requested but torch.cuda.is_available() is False; "
+            "pass device='cpu' to run on the host"
+        )
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {dev}; use 'cuda' or 'cpu'")
+    return dev
