@@ -5,16 +5,28 @@
 
 Phases, each printing JSON lines:
 
-1. build   — ``nvcc`` builds every kernel of the port from ``ssrg_torch/csrc``.
-2. kernels — each kernel against its plain PyTorch version on the card: the
-             headline hybrid pack (the serving path's own shapes), the
-             power-law pack and ragged packs; times from CUDA events for the
-             kernel, the plain version and one PyTorch library call.
-3. slice   — the serving path at full width: GAMLP (hidden 256, 3 layers,
-             K = 3, 40 classes) on a 169,343-node, F = 128 random graph,
-             through ``Predictor`` with ``engine="auto"`` (hybrid), random
-             weights from a seeded ``torch.Generator``; the kernel's launch
-             count, hop K against float64 scipy, and three requests.
+1. build    — ``nvcc`` builds every kernel of the port from
+              ``ssrg_torch/csrc``, one process per source, all at once.
+2. kernels  — the ELL kernel against its plain PyTorch version on the card:
+              the headline hybrid pack (the serving path's own shapes), the
+              power-law pack and ragged packs; times from CUDA events for the
+              kernel, the plain version and one PyTorch library call.
+3. slice    — the serving path at full width: GAMLP (hidden 256, 3 layers,
+              K = 3, 40 classes) on a 169,343-node, F = 128 random graph,
+              through ``Predictor`` with ``engine="auto"`` (hybrid), random
+              weights from a seeded ``torch.Generator``; the kernel's launch
+              count, hop K against float64 scipy, and three requests.
+4. locality — the locality tier on two 169,343-node, F = 128 graphs: a
+              banded graph with shuffled ids (RCM finds the band) and
+              ``community_graph`` (label propagation finds the clusters).
+              Each layer of the reorder path timed alone; the banded kernel
+              on the f32 and bf16 packs and the rest kernel on the
+              community rest (f32 and bf16) against their plain versions,
+              timed beside their bounds and a library call, then on ragged
+              packs; GAMLP through ``Predictor`` with ``reorder_banded``
+              (f32, bf16) and ``reorder_tiled`` + ``spmm_bf16``, each with
+              its kernel's launch count, hop K against float64 scipy and
+              three requests.
 
 Then a ``{"kernels": [...]}`` line, the card's name and power limit, and as
 the last line ``{"ok": true, "device": {...}}``. Any failed check raises and
@@ -25,7 +37,9 @@ and without the ``ssrg_torch`` package beside it, before printing anything.
 from __future__ import annotations
 
 import copy
+import dataclasses
 import json
+import logging
 import os
 import subprocess
 import sys
@@ -35,9 +49,23 @@ import numpy as np
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory (data sheet)
 F32_FLOPS_PER_S = 67e12       # H100 SXM float32 outside the tensor cores
+BF16_FLOPS_PER_S = 989e12     # H100 SXM bf16 tensor cores, dense
 UNIT_ROUNDOFF = 2.0 ** -24    # float32
 NUM_NODES, AVG_DEGREE, NUM_FEATURES, NUM_CLASSES = 169_343, 13.7, 128, 40
+BANDED_NEIGHBOURS, BANDED_REACH = 7, 1000
 SEED = 0
+KERNELS = ("ell_spmm", "banded_spmm", "rest_spmm")
+REPLACES = {
+    "ell_spmm": "ssrg_tpu/ops/pallas_spmm.py:47",
+    "banded_spmm": "ssrg_tpu/ops/pallas_banded.py:40",
+    "rest_spmm": "ssrg_tpu/ops/pallas_rest.py:56",
+}
+# (run, graph, spmm_engine, spmm_bf16, the kernel the run's path launches)
+LOCALITY_RUNS = (
+    ("banded_f32", "banded", "reorder_banded", False, "banded_spmm"),
+    ("banded_bf16", "banded", "reorder_banded", True, "banded_spmm"),
+    ("tiled_bf16", "community", "reorder_tiled", True, "rest_spmm"),
+)
 
 
 def emit(obj) -> None:
@@ -66,15 +94,106 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def kernel_wrappers() -> dict:
+    """Each kernel's wrapper by name; ``.launches`` is its launch count."""
+    from ssrg_torch.ops.banded_spmm import banded_spmm
+    from ssrg_torch.ops.ell_spmm import ell_spmm
+    from ssrg_torch.ops.rest_spmm import rest_spmm
+
+    return {"ell_spmm": ell_spmm, "banded_spmm": banded_spmm, "rest_spmm": rest_spmm}
+
+
+def reset_launches() -> None:
+    for fn in kernel_wrappers().values():
+        fn.launches = 0
+
+
+def read_launches() -> dict:
+    return {name: fn.launches for name, fn in kernel_wrappers().items()}
+
+
+def seeded_gamlp(num_features: int):
+    """GAMLP at ``ModelConfig`` defaults with weights from a seeded
+    ``torch.Generator``: the config, the spec and a copy of its weights."""
+    import torch
+
+    from ssrg_torch.configs.config import ModelConfig
+    from ssrg_torch.models.zoo import load_model
+
+    cfg = ModelConfig(model_name="gamlp")
+    spec = load_model(cfg, num_features, NUM_CLASSES)
+    spec.module.reset_parameters(torch.Generator().manual_seed(SEED))
+    return cfg, spec, {k: v.clone() for k, v in spec.module.state_dict().items()}
+
+
+def serve_requests(pred, what: str) -> list:
+    """Requests of 1, 1,000 and 4,096 random ids, each asked twice: shapes,
+    finite logits, ``predict == argmax`` and identical repeats checked."""
+    import torch
+
+    rng = np.random.default_rng(SEED)
+    requests = []
+    for n in (1, 1000, 4096):
+        ids = rng.integers(0, NUM_NODES, size=n)
+        t1 = time.perf_counter()
+        logits = pred.logits(ids)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        again = pred.logits(ids)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        labels = pred.predict(ids)
+        check(tuple(logits.shape) == (n, NUM_CLASSES),
+              f"{what}: logits shape {tuple(logits.shape)}")
+        check(bool(torch.isfinite(logits).all()), f"{what}: logits not finite")
+        check(torch.equal(labels, logits.argmax(dim=-1)), f"{what}: predict != argmax(logits)")
+        check(torch.equal(logits, again), f"{what}: a repeated request changed its logits")
+        requests.append({"n": n, "first_ms": (t2 - t1) * 1e3, "repeat_ms": (t3 - t2) * 1e3,
+                         "ids": ids, "logits": logits})
+    return requests
+
+
+def request_times(requests: list) -> list:
+    return [{k: r[k] for k in ("n", "first_ms", "repeat_ms")} for r in requests]
+
+
 def phase_build() -> None:
-    from ssrg_torch.ops import ell_spmm as kernel_module
+    """Build every kernel from its source, one ``nvcc`` each, all at once."""
+    from ssrg_torch.ops import _nvcc
 
     t0 = time.perf_counter()
-    log = kernel_module.build(force=True, extra_flags=["-Xptxas=-v"])
+    logs = _nvcc.build(KERNELS, force=True, extra_flags=["-Xptxas=-v"])
     seconds = time.perf_counter() - t0
-    ptxas = [ln.strip() for ln in log.splitlines() if "registers" in ln or "spill" in ln]
-    emit({"phase": "build", "source": "ssrg_torch/csrc/ell_spmm.cu",
-          "seconds": seconds, "ptxas": ptxas})
+    for name in KERNELS:
+        ptxas = [ln.strip() for ln in logs[name].splitlines()
+                 if "registers" in ln or "spill" in ln]
+        emit({"phase": "build", "source": f"ssrg_torch/csrc/{name}.cu",
+              "seconds_all": seconds, "ptxas": ptxas})
+
+
+def hold(name: str, out_k, out_p, tol) -> float:
+    """Check a kernel's output: finite, and within ``tol`` of its plain
+    version elementwise. Returns the largest absolute difference."""
+    import torch
+
+    diff = (out_k - out_p).abs()
+    max_abs_err = float(diff.max()) if diff.numel() else 0.0
+    check(bool(torch.isfinite(out_k).all()), f"{name}: kernel output not finite")
+    check(bool((diff <= tol).all()), f"{name}: kernel vs plain beyond the sum-order bound "
+          f"(max abs err {max_abs_err})")
+    return max_abs_err
+
+
+def bound(nbytes: int, flops: float, flops_per_s: float) -> dict:
+    """The least time the card could take for the work: the compulsory
+    bytes over device memory's rate or the operations over the peak rate of
+    their type, whichever is longer."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / flops_per_s * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes_ms": t_bytes, "operations_ms": t_ops,
+            "compulsory_bytes": nbytes, "flops": flops}
 
 
 def ell_case(name: str, cols, vals, x, timed: bool, tail=None) -> dict:
@@ -93,12 +212,7 @@ def ell_case(name: str, cols, vals, x, timed: bool, tail=None) -> dict:
     torch.cuda.synchronize()
     width = cols.shape[1]
     magnitude = ell_spmm_plain(cols, vals.abs(), x.abs())
-    tol = 2.0 * width * UNIT_ROUNDOFF * magnitude + 1e-30
-    diff = (out_k - out_p).abs()
-    max_abs_err = float(diff.max()) if diff.numel() else 0.0
-    check(bool(torch.isfinite(out_k).all()), f"{name}: kernel output not finite")
-    check(bool((diff <= tol).all()), f"{name}: kernel vs plain beyond the sum-order bound "
-          f"(max abs err {max_abs_err})")
+    max_abs_err = hold(name, out_k, out_p, 2.0 * width * UNIT_ROUNDOFF * magnitude + 1e-30)
     rec = {"phase": "kernels", "case": name, "kernel": "ell_spmm",
            "rows": int(cols.shape[0]), "width": int(width), "n": int(x.shape[0]),
            "f": int(x.shape[1]), "vec4": bool(x.shape[1] % 4 == 0 and x.data_ptr() % 16 == 0),
@@ -112,8 +226,6 @@ def ell_case(name: str, cols, vals, x, timed: bool, tail=None) -> dict:
     nbytes = (cols.numel() * 4 + vals.numel() * 4 + x.numel() * 4
               + out_k.numel() * 4)
     flops = 2.0 * int(counts.sum()) * x.shape[1]
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / F32_FLOPS_PER_S * 1e3
     crow = torch.zeros(cols.shape[0] + 1, dtype=torch.int64, device=x.device)
     crow[1:] = torch.cumsum(counts, 0)
     csr = torch.sparse_csr_tensor(crow, cols[real].to(torch.int64), vals[real],
@@ -125,9 +237,7 @@ def ell_case(name: str, cols, vals, x, timed: bool, tail=None) -> dict:
         "library_ms": cuda_ms(lambda: torch.sparse.mm(csr, x)),
         "library": "torch.sparse.mm on the CSR of the pack's nonzero slots",
         "library_max_abs_err": lib_err,
-        "bound_ms": max(t_bytes, t_ops),
-        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-        "compulsory_bytes": nbytes, "flops": flops,
+        **bound(nbytes, flops, F32_FLOPS_PER_S),
         "real_slots": int(counts.sum()), "slots": int(cols.numel()),
     })
     if tail is not None:
@@ -173,51 +283,28 @@ def phase_kernels(headline, powerlaw) -> dict:
 def phase_slice(ds, adj_norm) -> dict:
     import torch
 
-    from ssrg_torch.configs.config import ModelConfig, TrainingConfig
-    from ssrg_torch.models.zoo import load_model
-    from ssrg_torch.ops.ell_spmm import ell_spmm
+    from ssrg_torch.configs.config import TrainingConfig
     from ssrg_torch.serve import Predictor
 
-    cfg = ModelConfig(model_name="gamlp")
-    spec = load_model(cfg, ds.num_features, NUM_CLASSES)
-    spec.module.reset_parameters(torch.Generator().manual_seed(SEED))
-    params = {k: v.clone() for k, v in spec.module.state_dict().items()}
-
+    cfg, spec, params = seeded_gamlp(ds.num_features)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    ell_spmm.launches = 0
+    reset_launches()
     t0 = time.perf_counter()
     pred = Predictor(ds, spec, cfg, TrainingConfig(spmm_engine="auto"),
                      params=params, device="cuda")
     torch.cuda.synchronize()
     prepare_s = time.perf_counter() - t0
-    launches_prepare = ell_spmm.launches
-
-    rng = np.random.default_rng(SEED)
-    requests = []
-    for n in (1, 1000, 4096):
-        ids = rng.integers(0, NUM_NODES, size=n)
-        t1 = time.perf_counter()
-        logits = pred.logits(ids)
-        torch.cuda.synchronize()
-        t2 = time.perf_counter()
-        again = pred.logits(ids)
-        torch.cuda.synchronize()
-        t3 = time.perf_counter()
-        labels = pred.predict(ids)
-        check(tuple(logits.shape) == (n, NUM_CLASSES), f"logits shape {tuple(logits.shape)}")
-        check(bool(torch.isfinite(logits).all()), "logits not finite")
-        check(torch.equal(labels, logits.argmax(dim=-1)), "predict != argmax(logits)")
-        check(torch.equal(logits, again), "a repeated request changed its logits")
-        requests.append({"n": n, "first_ms": (t2 - t1) * 1e3, "repeat_ms": (t3 - t2) * 1e3,
-                         "ids": ids, "logits": logits})
-    launches = ell_spmm.launches
+    launches_prepare = read_launches()
+    requests = serve_requests(pred, "slice")
+    launches = read_launches()
     peak = torch.cuda.max_memory_allocated()
 
     k = cfg.prop_steps
-    check(launches_prepare == k, f"ell_spmm launched {launches_prepare} times in prepare, "
-          f"expected K={k}")
-    check(launches == k, f"requests launched ell_spmm ({launches - k} times)")
+    check(launches_prepare == {"ell_spmm": k, "banded_spmm": 0, "rest_spmm": 0},
+          f"prepare launched {launches_prepare}, expected ell_spmm K={k} times and no other")
+    check(launches == launches_prepare, f"requests launched kernels: {launches}")
+    launches_prepare = launches_prepare["ell_spmm"]
 
     # hop K against float64 scipy: f32 sums of <= 38 terms per hop, 3 hops
     hops = pred.prepared.inputs
@@ -241,10 +328,8 @@ def phase_slice(ds, adj_norm) -> dict:
           "nodes": NUM_NODES, "features": ds.num_features, "nnz": int(adj_norm.nnz),
           "engine": "auto", "prepare_s": prepare_s, "prepare_launches": launches_prepare,
           "hop_k_max_abs_err_vs_f64": hop_err, "head_max_abs_err_vs_host": head_err,
-          "requests": [{k: r[k] for k in ("n", "first_ms", "repeat_ms")}
-                       for r in requests],
-          "peak_mem_bytes": peak})
-    return {"ell_spmm": launches}
+          "requests": request_times(requests), "peak_mem_bytes": peak})
+    return launches_prepare
 
 
 def phase_layers(ds, prop_steps: int) -> None:
@@ -269,6 +354,440 @@ def phase_layers(ds, prop_steps: int) -> None:
     emit({"phase": "layers", "normalize_s": t1 - t0, "pack_s": t2 - t1,
           "to_device_s": t3 - t2, "propagate_ms": cuda_ms(
               lambda: propagate(dev_pack, x, prop_steps, device="cuda"), iters=5, warmup=1)})
+
+
+# --- the locality tier --------------------------------------------------------
+
+
+def banded_dataset():
+    """Every node gets ``BANDED_NEIGHBOURS`` neighbours at offsets uniform in
+    [-BANDED_REACH, BANDED_REACH] (clipped to the id range), unit weights,
+    symmetrized without self-loops; the ids are shuffled, so RCM has to find
+    the band again. F = 128 normal features, 40 labels."""
+    from ssrg_torch.data.graph import Graph
+
+    rng = np.random.default_rng(SEED)
+    n = NUM_NODES
+    r = np.repeat(np.arange(n), BANDED_NEIGHBOURS)
+    c = np.clip(r + rng.integers(-BANDED_REACH, BANDED_REACH + 1, r.shape), 0, n - 1)
+    shuf = rng.permutation(n)
+    x = rng.normal(size=(n, NUM_FEATURES)).astype(np.float32)
+    y = rng.integers(0, NUM_CLASSES, n)
+    return Graph(shuf[r], shuf[c], np.ones(r.size, np.float32), n, "UUU", x=x, y=y)
+
+
+def community_dataset():
+    """``community_graph(169_343)`` (512-node communities, ids shuffled)
+    with F = 128 normal features and 40 labels from numpy seed 0."""
+    from ssrg_torch.data.graph import Graph
+    from ssrg_torch.data.synthetic import community_graph
+
+    rng = np.random.default_rng(SEED)
+    x = rng.normal(size=(NUM_NODES, NUM_FEATURES)).astype(np.float32)
+    y = rng.integers(0, NUM_CLASSES, NUM_NODES)
+    g = Graph(np.zeros(0), np.zeros(0), np.zeros(0), NUM_NODES, "UUU", x=x, y=y)
+    g.adj = community_graph(NUM_NODES, seed=SEED)
+    return g
+
+
+def locality_layers(run: str, ds, engine: str, bf16: bool, prop_steps: int):
+    """The layers of ``prepare``'s reorder path, each timed alone: host
+    normalization, the permutation, renumbering the graph and features, the
+    host pack, the copy to the card, the K hops (CUDA events) and the
+    un-permutation of the hop stack. Returns the record, the pack on the card
+    and the renumbered features there."""
+    import torch
+
+    from ssrg_torch.ops.normalize import sym_norm
+    from ssrg_torch.ops.pallas_banded import build_pallas_banded
+    from ssrg_torch.ops.pallas_rest import RestSegmentedAdj
+    from ssrg_torch.ops.propagate import propagate
+    from ssrg_torch.ops.reorder import (
+        apply_permutation, bandwidth, reorder_permutation, reorder_plan,
+    )
+    from ssrg_torch.ops.sparse import build_tiled
+
+    dev = torch.device("cuda")
+    method, dense_engine, merge_target, kwargs = reorder_plan(engine, dev, bf16)
+    t0 = time.perf_counter()
+    adj = sym_norm(ds.adj, 0.5)
+    t1 = time.perf_counter()
+    perm = reorder_permutation(adj, method, merge_target=merge_target)
+    t2 = time.perf_counter()
+    adj_p, x_p, _, inverse = apply_permutation(adj, perm, ds.x)
+    t3 = time.perf_counter()
+    if dense_engine == "pallas_banded":
+        pack = build_pallas_banded(adj_p, **kwargs)
+    else:
+        pack = build_tiled(adj_p, device=dev, **kwargs)
+    t4 = time.perf_counter()
+    pack_dev = pack.to(dev)
+    x_dev = torch.as_tensor(x_p, device=dev)
+    inv = torch.as_tensor(inverse, device=dev)
+    torch.cuda.synchronize()
+    t5 = time.perf_counter()
+    del pack
+    hops = propagate(pack_dev, x_dev, prop_steps, device=dev)
+    rec = {"phase": "locality_layers", "run": run, "engine": engine,
+           "dense_engine": dense_engine, "spmm_bf16": bf16, "method": method,
+           "nnz": int(adj.nnz), "bandwidth_before": bandwidth(adj),
+           "bandwidth_after": bandwidth(adj_p),
+           "normalize_s": t1 - t0, "reorder_s": t2 - t1, "renumber_s": t3 - t2,
+           "pack_s": t4 - t3, "copy_s": t5 - t4,
+           "hops_ms": cuda_ms(lambda: propagate(pack_dev, x_dev, prop_steps, device=dev),
+                              iters=5, warmup=1),
+           "unpermute_ms": cuda_ms(lambda: hops.index_select(1, inv), iters=5, warmup=1)}
+    if dense_engine == "pallas_banded":
+        nb, rb, w = pack_dev.blocks.shape
+        rec.update(row_blocks=nb, row_block=rb, window=w, window_bf16=pack_dev.window_bf16,
+                   blocks_dtype=str(pack_dev.blocks.dtype),
+                   blocks_bytes=pack_dev.blocks.numel() * pack_dev.blocks.element_size())
+    else:
+        rest = pack_dev.rest
+        check(isinstance(rest, RestSegmentedAdj) and rest.default_executor == "pallas",
+              f"{run}: the tiled pack's rest is {type(rest).__name__}, not the rest kernel's")
+        rec.update(tiles=int(pack_dev.tiles.shape[0]), tiled_fraction=pack_dev.tiled_fraction,
+                   tiles_dtype=str(pack_dev.tiles.dtype),
+                   tiles_bytes=pack_dev.tiles.numel() * pack_dev.tiles.element_size(),
+                   rest_chunks=rest.num_chunks, rest_chunk=rest.chunk,
+                   rest_row_blocks=rest.nb, rest_row_block=rest.row_block,
+                   rest_gather_bf16=rest.gather_bf16)
+    return rec, pack_dev, x_dev
+
+
+def banded_case(name: str, blocks, los, x, round_x: bool, timed: bool) -> dict:
+    """Hold ``banded_spmm`` against ``banded_spmm_plain`` on card tensors.
+
+    Tolerance: both take the same products for each output (in bf16 both
+    round the same operands, and a bf16 x bf16 product is exact in f32) and
+    sum them in another order; a zero entry adds an exact zero, so for a row
+    of c nonzero entries each is within ``c * u * sum|a * x|`` of the exact
+    sum (u = 2^-24) and they differ by at most twice that, elementwise."""
+    import torch
+
+    from ssrg_torch.ops.banded_spmm import banded_spmm, banded_spmm_plain
+
+    out_k = banded_spmm(blocks, los, x, round_x)
+    out_p = banded_spmm_plain(blocks, los, x, round_x)
+    torch.cuda.synchronize()
+    nb, rb, w = blocks.shape
+    f = x.shape[1]
+    bf16 = blocks.dtype == torch.bfloat16
+    counts = (blocks != 0).sum(dim=2).reshape(-1)          # nonzeros of each output row
+    magnitude = banded_spmm_plain(blocks.abs(), los, x.abs(), round_x)
+    max_abs_err = hold(name, out_k, out_p,
+                       2.0 * counts[:, None] * UNIT_ROUNDOFF * magnitude + 1e-30)
+    del magnitude
+    nonzeros = int(counts.sum())
+    rec = {"phase": "kernels", "case": name, "kernel": "banded_spmm", "row_blocks": nb,
+           "row_block": rb, "window": w, "n": int(x.shape[0]), "f": f,
+           "blocks_dtype": str(blocks.dtype), "round_x": bool(round_x or bf16),
+           "window_past_n": int(los.max()) + w > x.shape[0],
+           "empty_row_blocks": int(counts.reshape(nb, rb).sum(dim=1).eq(0).sum()),
+           "nonzeros": nonzeros, "longest_row": int(counts.max()),
+           "max_abs_err": max_abs_err,
+           "tolerance": "2*c*2^-24*sum|a*x| elementwise, c nonzeros of the row"}
+    if not timed:
+        return rec
+    # the bound: the blocks, los, x and out each moved once; one multiply-add
+    # per feature for each nonzero entry (a zero entry needs no work) at the
+    # peak rate of the blocks' type
+    nbytes = (blocks.numel() * blocks.element_size() + los.numel() * 4 + x.numel() * 4
+              + out_k.numel() * 4)
+    flops = 2.0 * nonzeros * f
+    # the yardstick: one torch.bmm of the blocks with their windows, gathered
+    # beforehand (the gather is not in its time)
+    need = int(los.max()) + w
+    xp = torch.cat([x, x.new_zeros((max(need - x.shape[0], 0), f))])
+    windows = xp[los.long()[:, None] + torch.arange(w, device=x.device)]
+    del xp
+    if bf16:
+        windows = windows.bfloat16()
+    elif round_x:
+        windows = windows.bfloat16().float()
+    lib_err = float((torch.bmm(blocks, windows).float().reshape(-1, f) - out_p).abs().max())
+    rec.update({
+        "ms": cuda_ms(lambda: banded_spmm(blocks, los, x, round_x)),
+        "plain_ms": cuda_ms(lambda: banded_spmm_plain(blocks, los, x, round_x), iters=5),
+        "library_ms": cuda_ms(lambda: torch.bmm(blocks, windows)),
+        "library": f"torch.bmm in {blocks.dtype} over windows gathered beforehand "
+                   "(excludes the gather)",
+        "library_max_abs_err": lib_err,
+        **bound(nbytes, flops, BF16_FLOPS_PER_S if bf16 else F32_FLOPS_PER_S),
+        "dense_flops": 2.0 * nb * rb * w * f,
+    })
+    return rec
+
+
+def rest_case(name: str, pack, x, timed: bool) -> dict:
+    """Hold ``rest_spmm`` against ``rest_spmm_plain`` on card tensors.
+
+    Tolerance: both take the same terms for a row (with ``gather_bf16`` both
+    round the same operands and products) and sum them in another order,
+    the plain version's ``index_add_`` in no fixed one; for a row of c real
+    entries each is within ``c * u * sum|term|`` of the exact sum, so they
+    differ by at most twice that, elementwise."""
+    import torch
+
+    from ssrg_torch.ops.rest_spmm import rest_spmm, rest_spmm_plain
+
+    rp, cols, vals, bf16 = pack.row_ptr, pack.cols, pack.vals, pack.gather_bf16
+    out_k = rest_spmm(rp, cols, vals, x, bf16)
+    out_p = rest_spmm_plain(rp, cols, vals, x, bf16)
+    torch.cuda.synchronize()
+    n_out, f = rp.shape[0] - 1, x.shape[1]
+    end = int(rp[-1])
+    flat_c, flat_v = cols.reshape(-1)[:end], vals.reshape(-1)[:end]
+    real = (flat_c != 0) | (flat_v != 0)
+    row_of = torch.repeat_interleave(torch.arange(n_out, device=x.device), rp.diff(),
+                                     output_size=end)
+    counts = torch.bincount(row_of[real], minlength=n_out)
+    magnitude = rest_spmm_plain(rp, cols, vals.abs(), x.abs(), bf16)
+    max_abs_err = hold(name, out_k, out_p,
+                       2.0 * counts[:, None] * UNIT_ROUNDOFF * magnitude + 1e-30)
+    n_real = int(real.sum())
+    rec = {"phase": "kernels", "case": name, "kernel": "rest_spmm", "rows": n_out,
+           "n": int(x.shape[0]), "f": f, "chunks": pack.num_chunks, "chunk": pack.chunk,
+           "row_block": pack.row_block, "real_entries": n_real,
+           "longest_row": int(counts.max()), "edge_free_rows": int((counts == 0).sum()),
+           "gather_bf16": bool(bf16), "max_abs_err": max_abs_err,
+           "tolerance": "2*c*2^-24*sum|term| elementwise, c real entries of the row"}
+    if not timed:
+        return rec
+    # the bound: row_ptr, cols, vals, x and out each moved once; one
+    # multiply-add per feature for each real entry
+    nbytes = (rp.numel() * 8 + cols.numel() * 4 + vals.numel() * 4 + x.numel() * 4
+              + out_k.numel() * 4)
+    flops = 2.0 * n_real * f
+    crow = torch.zeros(n_out + 1, dtype=torch.int64, device=x.device)
+    crow[1:] = torch.cumsum(counts, 0)
+    csr = torch.sparse_csr_tensor(crow, flat_c[real].long(), flat_v[real],
+                                  size=(n_out, x.shape[0]))
+    lib_err = float((torch.sparse.mm(csr, x) - out_p).abs().max())
+    rec.update({
+        "ms": cuda_ms(lambda: rest_spmm(rp, cols, vals, x, bf16), iters=50, warmup=5),
+        "plain_ms": cuda_ms(lambda: rest_spmm_plain(rp, cols, vals, x, bf16)),
+        "library_ms": cuda_ms(lambda: torch.sparse.mm(csr, x), iters=50, warmup=5),
+        "library": "torch.sparse.mm in f32 on the CSR of the real entries",
+        "library_max_abs_err": lib_err,
+        **bound(nbytes, flops, F32_FLOPS_PER_S),
+    })
+    return rec
+
+
+def banded_ragged_cases() -> list:
+    """Small banded packs for the kernel's edges: ``(name, blocks, los, x,
+    round_x)`` on the card."""
+    import scipy.sparse as sp
+    import torch
+
+    from ssrg_torch.ops.sparse import build_banded
+
+    gen = torch.Generator().manual_seed(SEED)
+    rng = np.random.default_rng(SEED)
+    # a real pack: N = 5,000 is not a multiple of the 256-row block, the last
+    # window runs past N, F = 50
+    n = 5000
+    r = np.repeat(np.arange(n), BANDED_NEIGHBOURS)
+    c = np.clip(r + rng.integers(-200, 201, r.shape), 0, n - 1)
+    adj = sp.csr_matrix((rng.uniform(0.1, 1.0, r.size).astype(np.float32), (r, c)),
+                        shape=(n, n))
+    pack = build_banded(adj, row_block=256)
+    check(int(pack.los.max()) + pack.window > n, "the real ragged pack has no window past N")
+    cases = [("real_n5000_f50", pack.blocks, pack.los, torch.randn(n, 50, generator=gen),
+              False)]
+
+    def synthetic(nb, rb, w, n, f, bf16, empty):
+        blocks = torch.randn(nb, rb, w, generator=gen)
+        blocks[torch.rand(nb, rb, w, generator=gen) < 0.7] = 0.0
+        blocks[list(empty)] = 0.0                          # empty row blocks
+        los = torch.randint(0, max(n - w // 2, 1), (nb,), generator=gen) // 16 * 16
+        los[-1] = (n - 8) // 16 * 16                       # runs past N
+        return (blocks.bfloat16() if bf16 else blocks, los.int(),
+                torch.randn(n, f, generator=gen))
+
+    cases += [
+        ("empty_blocks_past_n", *synthetic(6, 128, 256, 700, 64, False, (1, 4)), False),
+        ("bf16_rb512_f130", *synthetic(3, 512, 384, 1500, 130, True, ()), True),
+        ("rb100_w200_window_bf16", *synthetic(5, 100, 200, 900, 32, False, (0,)), True),
+    ]
+    return [(name, b.cuda(), lo.cuda(), x.cuda(), rx) for name, b, lo, x, rx in cases]
+
+
+def rest_ragged_cases() -> list:
+    """Small rest layouts (row blocks and chunks of 1,024, as the tiled
+    engine builds them) for the kernel's edges: ``(name, pack, x)`` on the
+    card."""
+    import scipy.sparse as sp
+    import torch
+
+    from ssrg_torch.ops.pallas_rest import build_rest_segmented
+
+    gen = torch.Generator().manual_seed(SEED)
+    rng = np.random.default_rng(SEED)
+
+    def layout(r, c, n, m, bf16):
+        adj = sp.csr_matrix((rng.uniform(0.1, 1.0, r.size).astype(np.float32), (r, c)),
+                            shape=(n, m))
+        adj.sum_duplicates()
+        return build_rest_segmented(adj, row_block=1024, chunk=1024, gather_bf16=bf16,
+                                    device="cuda")
+
+    r = rng.integers(0, 4096, 12_000)
+    r = r[(r < 1024) | (r >= 2048)]                        # rows 1024-2047: no edge
+    long_r = np.concatenate([rng.integers(0, 3000, 6000), np.full(3000, 17)])
+    long_c = np.concatenate([rng.integers(0, 3000, 6000), np.arange(3000)])
+    cases = [
+        ("f50", layout(rng.integers(0, 5000, 15_000), rng.integers(0, 5000, 15_000),
+                       5000, 5000, False), 50),
+        ("edge_free_block_bf16", layout(r, rng.integers(0, 4096, r.size), 4096, 4096, True),
+         64),
+        ("row_across_chunks", layout(long_r, long_c, 3000, 3000, False), 128),
+        ("rectangular_bf16", layout(rng.integers(0, 3000, 9000), rng.integers(0, 7000, 9000),
+                                    3000, 7000, True), 96),
+    ]
+    return [(name, pack.to("cuda"), torch.randn(pack.n_cols, f, generator=gen).cuda())
+            for name, pack, f in cases]
+
+
+class WarningLog(logging.Handler):
+    """Keeps the messages of the warnings logged while it is attached."""
+
+    def __init__(self):
+        super().__init__(logging.WARNING)
+        self.messages = []
+
+    def emit(self, record):
+        self.messages.append(record.getMessage())
+
+
+def locality_slice(run: str, ds, engine: str, bf16: bool, kernel: str) -> int:
+    """GAMLP through ``Predictor`` with ``spmm_engine=engine`` on the card.
+
+    Checks: ``prepare`` launched the path's kernel K times and no other
+    kernel, and logged no fallback warning; hop K in the original node order
+    against float64 scipy ``A^K X`` (f32: 1e-4; bf16: ``K * 2^-7 *
+    (|A|^K |X|)`` elementwise, since each hop rounds the weights, the window
+    and, in the rest, the products to bf16, 2^-9 relative each, at most
+    three times a term); the requests; and, for the f32 banded run, the
+    logits of a hybrid ``Predictor`` with the same weights within 1e-4
+    relative, which shows the hops went back to their own node ids. Returns
+    the path kernel's launches in ``prepare``."""
+    import torch
+
+    from ssrg_torch.configs.config import TrainingConfig
+    from ssrg_torch.ops.normalize import sym_norm
+    from ssrg_torch.serve import Predictor
+
+    cfg, spec, params = seeded_gamlp(ds.num_features)
+    k = cfg.prop_steps
+    warned = WarningLog()
+    logger = logging.getLogger("ssrg_torch")
+    logger.addHandler(warned)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    pred = Predictor(ds, spec, cfg, TrainingConfig(spmm_engine=engine, spmm_bf16=bf16),
+                     params=params, device="cuda")
+    torch.cuda.synchronize()
+    prepare_s = time.perf_counter() - t0
+    launches = read_launches()
+    logger.removeHandler(warned)
+    expected = {name: (k if name == kernel else 0) for name in KERNELS}
+    check(launches == expected, f"{run}: prepare launched {launches}, expected {expected}")
+    check(not warned.messages, f"{run}: prepare warned {warned.messages}")
+    requests = serve_requests(pred, run)
+    check(read_launches() == launches, f"{run}: requests launched kernels")
+    peak = torch.cuda.max_memory_allocated()
+
+    hops = pred.prepared.inputs
+    check(pred.prepared.hops_layout and tuple(hops.shape) == (k + 1, NUM_NODES, NUM_FEATURES),
+          f"{run}: hop stack {tuple(hops.shape)}")
+    a64 = sym_norm(ds.adj, 0.5).astype(np.float64)
+    ref = np.asarray(ds.x, np.float64)
+    ref_abs, a_abs = np.abs(ref), abs(a64)
+    for _ in range(k):
+        ref, ref_abs = a64 @ ref, a_abs @ ref_abs
+    err = np.abs(hops[k].cpu().numpy().astype(np.float64) - ref)
+    if bf16:
+        hop_tol = "K*2^-7*(|A|^K|X|) elementwise"
+        check(bool((err <= k * 2.0 ** -7 * ref_abs + 1e-30).all()),
+              f"{run}: hop {k} vs float64 scipy beyond {hop_tol} (max abs err {err.max()})")
+    else:
+        hop_tol = "1e-4 abs"
+        check(err.max() <= 1e-4, f"{run}: hop {k} vs float64 scipy: max abs err {err.max()}")
+    rec = {"phase": "locality_slice", "run": run, "model": "gamlp", "hidden": cfg.hidden_dim,
+           "num_layers": cfg.num_layers, "prop_steps": k, "classes": NUM_CLASSES,
+           "nodes": NUM_NODES, "features": NUM_FEATURES, "nnz": int(a64.nnz),
+           "engine": engine, "spmm_bf16": bf16, "prepare_s": prepare_s,
+           "prepare_launches": launches, "hop_k_max_abs_err_vs_f64": float(err.max()),
+           "hop_k_max_rel_err_vs_f64": float((err / (ref_abs + 1e-30)).max()),
+           "hop_tolerance": hop_tol, "requests": request_times(requests),
+           "peak_mem_bytes": peak}
+    del pred, hops
+    if run == "banded_f32":
+        _, spec, _ = seeded_gamlp(ds.num_features)
+        reset_launches()
+        hybrid = Predictor(ds, spec, cfg, TrainingConfig(spmm_engine="hybrid"),
+                           params=params, device="cuda")
+        rec["hybrid_prepare_launches"] = read_launches()
+        worst = 0.0
+        for req in requests:
+            want = hybrid.logits(req["ids"])
+            gap = float((req["logits"] - want).abs().max()) / (1.0 + float(want.abs().max()))
+            check(gap <= 1e-4, f"{run}: logits vs the hybrid Predictor's: {gap} relative")
+            worst = max(worst, gap)
+        rec["hybrid_logits_max_rel_err"] = worst
+        del hybrid
+    emit(rec)
+    torch.cuda.empty_cache()
+    return launches[kernel]
+
+
+def phase_locality(prop_steps: int):
+    """The locality tier: layers, kernel cases at the path's shapes and on
+    ragged packs, and the three ``Predictor`` runs. Returns the timed record
+    of each new kernel and its launches on its path."""
+    import torch
+
+    t0 = time.perf_counter()
+    graphs = {"banded": banded_dataset(), "community": community_dataset()}
+    emit({"phase": "locality_data", "host_s": time.perf_counter() - t0,
+          "banded_edges": int(graphs["banded"].adj.nnz),
+          "community_edges": int(graphs["community"].adj.nnz)})
+
+    packs = {}
+    for run, graph, engine, bf16, _ in LOCALITY_RUNS:
+        rec, pack, x = locality_layers(run, graphs[graph], engine, bf16, prop_steps)
+        emit(rec)
+        packs[run] = (pack, x)
+    recs = {}
+    for run in ("banded_f32", "banded_bf16"):
+        pack, x = packs.pop(run)
+        recs[run] = banded_case(f"{run}_pack", pack.blocks, pack.los, x, pack.window_bf16,
+                                timed=True)
+        emit(recs[run])
+        del pack, x
+    pack, x = packs.pop("tiled_bf16")
+    for bf16 in (True, False):
+        run = f"rest_{'bf16' if bf16 else 'f32'}"
+        recs[run] = rest_case(f"community_{run}", dataclasses.replace(pack.rest, gather_bf16=bf16),
+                              x, timed=True)
+        emit(recs[run])
+    del pack, x
+    torch.cuda.empty_cache()
+    for name, blocks, los, x, round_x in banded_ragged_cases():
+        emit(banded_case(name, blocks, los, x, round_x, timed=False))
+    for name, pack, x in rest_ragged_cases():
+        emit(rest_case(name, pack, x, timed=False))
+    torch.cuda.empty_cache()
+
+    launches = {}
+    for run, graph, engine, bf16, kernel in LOCALITY_RUNS:
+        launches[run] = locality_slice(run, graphs[graph], engine, bf16, kernel)
+    return ({"banded_spmm": recs["banded_f32"], "rest_spmm": recs["rest_bf16"]},
+            {"banded_spmm": launches["banded_f32"], "rest_spmm": launches["tiled_bf16"]})
 
 
 def main() -> int:
@@ -314,24 +833,31 @@ def main() -> int:
 
     recs = phase_kernels(packs["headline"], packs["powerlaw"])
     del packs
-    launches = phase_slice(ds, adj_norm)
+    launches = {"ell_spmm": phase_slice(ds, adj_norm)}
     phase_layers(ds, prop_steps=3)
+    del ds, adj_norm, pg
+    torch.cuda.empty_cache()
 
-    head = recs["headline"]
+    timed = {"ell_spmm": recs["headline"]}
+    locality_recs, locality_launches = phase_locality(prop_steps=3)
+    timed.update(locality_recs)
+    launches.update(locality_launches)
+
     emit({"kernels": [{
-        "name": "ell_spmm", "route": "cuda", "source": "ssrg_torch/csrc/ell_spmm.cu",
-        "replaces": "ssrg_tpu/ops/pallas_spmm.py:47",
-        "launches": launches["ell_spmm"], "max_abs_err": head["max_abs_err"],
-        "ms": head["ms"], "kernel_ms": head["ms"], "plain_ms": head["plain_ms"],
-        "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
-        "library_ms": head["library_ms"],
-    }]})
+        "name": name, "route": "cuda", "source": f"ssrg_torch/csrc/{name}.cu",
+        "replaces": REPLACES[name], "launches": launches[name],
+        "max_abs_err": timed[name]["max_abs_err"], "ms": timed[name]["ms"],
+        "kernel_ms": timed[name]["ms"], "plain_ms": timed[name]["plain_ms"],
+        "bound_ms": timed[name]["bound_ms"], "bound_by": timed[name]["bound_by"],
+        "library_ms": timed[name]["library_ms"],
+    } for name in KERNELS]})
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True)
     print(" | ".join(ln.strip() for ln in smi.stdout.splitlines() if ln.strip()), flush=True)
+    # the run drives one card, whatever else the machine holds
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
-                                 "count": torch.cuda.device_count()}})
+                                 "count": 1}})
     return 0
 
 

@@ -41,9 +41,12 @@ def cached_propagate(
     engine: str = "auto",
     tag: str = "",
     device: DeviceLike = "cuda",
+    engine_kwargs: Optional[dict] = None,
 ) -> torch.Tensor:
     """K-hop propagation with a disk cache of the result; returns the hop
-    stack ``[K+1, N, F]`` on ``device``."""
+    stack ``[K+1, N, F]`` on ``device``. ``engine_kwargs`` go to the
+    engine's pack function; whatever of them changes the numbers (bf16
+    storage, say) the caller folds into ``tag``, as the reference does."""
     from ssrg_torch.ops.propagate import propagate
     from ssrg_torch.ops.sparse import device_adjacency
 
@@ -56,7 +59,7 @@ def cached_propagate(
         if osp.exists(path):
             with np.load(path) as z:
                 return torch.as_tensor(z["hops"], device=dev)
-    adj_dev = device_adjacency(adj_norm, engine, device=dev)
+    adj_dev = device_adjacency(adj_norm, engine, device=dev, **(engine_kwargs or {}))
     hops = propagate(adj_dev, x, prop_steps, device=dev)
     if path is not None:
         np.savez(path, hops=hops.cpu().numpy())

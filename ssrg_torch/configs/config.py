@@ -55,7 +55,9 @@ class TrainingConfig:
     train_batch_size: Optional[int] = None  # None => full-batch
     eval_batch_size: Optional[int] = None
     dtype: str = "float32"
-    spmm_engine: str = "auto"   # auto | dense | coo | ell | hybrid | pallas
+    # auto | dense | coo | ell | hybrid | pallas | banded | tiled | blockcoo
+    # | pallas_banded | reorder_banded | reorder_tiled | autotune
+    spmm_engine: str = "auto"
     spmm_bf16: bool = False
     cluster_merge_target: int = 0
     mesh_shape: Sequence[int] = ()

@@ -164,3 +164,74 @@ def planetoid_like(
     val = np.sort(rest[:num_val])
     test = np.sort(rest[num_val : num_val + num_test])
     return InMemoryDataset(g, train, val, test, name=f"sbm_{num_node}")
+
+
+def community_graph(
+    num_nodes: int, comm: int = 512, intra_deg: int = 10, inter_deg: int = 2,
+    seed: int = 0,
+):
+    """Community graph with shuffled node ids: ``intra_deg`` edges a node
+    inside its ``comm``-node community, ``inter_deg`` to uniform nodes. The
+    input whose clustered structure the locality pipeline (LPA ->
+    ``reorder_tiled``) must discover itself. Returns a symmetric scipy CSR
+    with unit weights."""
+    import scipy.sparse as sp
+
+    n = num_nodes
+    rng = np.random.default_rng(seed)
+    base = (np.arange(n, dtype=np.int64) // comm) * comm
+    r_in = np.repeat(np.arange(n, dtype=np.int64), intra_deg)
+    # clip: the last community is truncated when comm does not divide n
+    c_in = np.minimum(base[r_in] + rng.integers(0, comm, r_in.shape), n - 1)
+    r_out = np.repeat(np.arange(n, dtype=np.int64), inter_deg)
+    c_out = rng.integers(0, n, r_out.shape)
+    r = np.concatenate([r_in, r_out])
+    c = np.concatenate([c_in, c_out])
+    keep = r != c
+    shuf = rng.permutation(n)
+    adj = sp.coo_matrix(
+        (np.ones(keep.sum(), np.float32), (shuf[r[keep]], shuf[c[keep]])),
+        shape=(n, n),
+    )
+    adj = (adj + adj.T).tocsr()
+    adj.data[:] = 1.0
+    return adj
+
+
+def nested_community_graph(
+    num_nodes: int, comm: int = 512, group: int = 4, intra_deg: int = 10,
+    sib_deg: int = 2, uni_deg: int = 1, seed: int = 0,
+):
+    """Two-level community graph with shuffled ids: ``comm``-node
+    communities nested in ``comm * group``-node super-communities. Edges of a
+    node: ``intra_deg`` inside its community, ``sib_deg`` into a sibling
+    community of its super-community, ``uni_deg`` to uniform nodes. Returns
+    a symmetric scipy CSR with unit weights."""
+    import scipy.sparse as sp
+
+    n = num_nodes
+    rng = np.random.default_rng(seed)
+    cluster_of = np.arange(n, dtype=np.int64) // comm
+    group_base = (cluster_of // group) * group
+    r_in = np.repeat(np.arange(n, dtype=np.int64), intra_deg)
+    c_in = np.minimum(
+        cluster_of[r_in] * comm + rng.integers(0, comm, r_in.shape), n - 1
+    )
+    r_s = np.repeat(np.arange(n, dtype=np.int64), sib_deg)
+    sib = group_base[r_s] + rng.integers(0, group, r_s.shape)
+    sib = np.where(sib == cluster_of[r_s],
+                   group_base[r_s] + (sib - group_base[r_s] + 1) % group, sib)
+    c_s = np.minimum(sib * comm + rng.integers(0, comm, r_s.shape), n - 1)
+    r_u = np.repeat(np.arange(n, dtype=np.int64), uni_deg)
+    c_u = rng.integers(0, n, r_u.shape)
+    r = np.concatenate([r_in, r_s, r_u])
+    c = np.concatenate([c_in, c_s, c_u])
+    keep = r != c
+    shuf = rng.permutation(n)
+    adj = sp.coo_matrix(
+        (np.ones(keep.sum(), np.float32), (shuf[r[keep]], shuf[c[keep]])),
+        shape=(n, n),
+    )
+    adj = (adj + adj.T).tocsr()
+    adj.data[:] = 1.0
+    return adj

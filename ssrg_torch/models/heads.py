@@ -17,7 +17,7 @@ from torch import nn
 
 from ssrg_torch.utils import init_dense_xavier_relu_
 
-TRAINING_SLICE = "ROADMAP.md, queue item 1 (training slice)"
+TRAINING_SLICE = "ROADMAP.md queue, training slice"
 
 
 class PReLU(nn.Module):

@@ -37,7 +37,7 @@ from ssrg_torch.ops.combine import (
     make_message_op,
 )
 
-SPECTRAL_SLICE = "ROADMAP.md, queue item 6 (spectral / complex models)"
+SPECTRAL_SLICE = "ROADMAP.md queue, spectral / complex models"
 
 GRAPH_OPS: Dict[str, Callable[[sp.spmatrix, ModelConfig], Any]] = {
     "sym": lambda adj, cfg: normalize.sym_norm(adj, cfg.r),

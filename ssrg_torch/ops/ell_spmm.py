@@ -7,83 +7,34 @@ port of ``ssrg_tpu/ops/pallas_spmm.py::_spmm_kernel`` and carries both
 ``ELLAdj.spmm`` (the bulk of the hybrid engine, which ``engine="auto"``
 picks above 8192 nodes) and ``PallasELLAdj.spmm``.
 
-For CUDA tensors the wrapper launches ``csrc/ell_spmm.cu``, which is built
-with ``nvcc`` into ``ssrg_torch/build/`` at first use and loaded with
-ctypes. For CPU tensors it runs :func:`ell_spmm_plain`. There is no other
-path: a CUDA tensor launches the kernel or raises.
+For CUDA tensors the wrapper launches ``csrc/ell_spmm.cu``, which
+:mod:`ssrg_torch.ops._nvcc` builds at first use. For CPU tensors it runs
+:func:`ell_spmm_plain`. There is no other path: a CUDA tensor launches the
+kernel or raises.
 """
 
 from __future__ import annotations
 
 import ctypes
-import os
-import os.path as osp
-import shutil
-import subprocess
-from typing import Optional
 
 import torch
 
-_PKG_DIR = osp.dirname(osp.dirname(osp.abspath(__file__)))
-SOURCE = osp.join(_PKG_DIR, "csrc", "ell_spmm.cu")
-BUILD_DIR = osp.join(_PKG_DIR, "build")
-LIBRARY = osp.join(BUILD_DIR, "libell_spmm.so")
-NVCC_FLAGS = [
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC",
-]
+from ssrg_torch.ops import _nvcc
+
+NAME = "ell_spmm"
 
 # bytes of gathered neighbour rows the plain version materializes at once
 _PLAIN_CHUNK_BYTES = 1 << 26
 
-_lib: Optional[ctypes.CDLL] = None
 
-
-def _nvcc() -> str:
-    cuda_home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
-    candidates = [osp.join(cuda_home, "bin", "nvcc")] if cuda_home else []
-    candidates += [shutil.which("nvcc") or "", "/usr/local/cuda/bin/nvcc"]
-    for path in candidates:
-        if path and osp.exists(path):
-            return path
-    raise RuntimeError(
-        "nvcc not found (looked in $CUDA_HOME/bin, PATH and /usr/local/cuda/bin); "
-        "the ELL SpMM kernel is built from csrc/ell_spmm.cu at first use"
-    )
-
-
-def build(force: bool = False, extra_flags=()) -> str:
-    """Compile ``csrc/ell_spmm.cu`` into ``build/libell_spmm.so`` unless an
-    up-to-date library is there; return the compiler's output."""
-    if (not force and osp.exists(LIBRARY)
-            and osp.getmtime(LIBRARY) >= osp.getmtime(SOURCE)):
-        return ""
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{LIBRARY}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, *extra_flags, "-o", tmp, SOURCE]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stderr}"
-        )
-    os.replace(tmp, LIBRARY)
-    return proc.stdout + proc.stderr
-
-
-def _library() -> ctypes.CDLL:
-    global _lib
-    if _lib is None:
-        build()
-        lib = ctypes.CDLL(LIBRARY)
-        fn = lib.ell_spmm_f32
-        fn.argtypes = [
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-            ctypes.c_void_p,
-        ]
-        fn.restype = ctypes.c_int
-        _lib = lib
-    return _lib
+def _declare(lib: ctypes.CDLL) -> None:
+    fn = lib.ell_spmm_f32
+    fn.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_void_p,
+    ]
+    fn.restype = ctypes.c_int
 
 
 def _check(cols: torch.Tensor, vals: torch.Tensor, x: torch.Tensor) -> None:
@@ -94,25 +45,17 @@ def _check(cols: torch.Tensor, vals: torch.Tensor, x: torch.Tensor) -> None:
             f"ell_spmm: vals and x must be float32, got {vals.dtype} and {x.dtype}"
         )
     if cols.dim() != 2 or cols.shape != vals.shape:
-        raise ValueError(
+        raise TypeError(
             f"ell_spmm: cols and vals must be [rows, width] of one shape, got "
             f"{tuple(cols.shape)} and {tuple(vals.shape)}"
         )
     if x.dim() != 2:
-        raise ValueError(f"ell_spmm: x must be [N, F], got {tuple(x.shape)}")
-    if not (cols.is_contiguous() and vals.is_contiguous() and x.is_contiguous()):
-        raise ValueError("ell_spmm: cols, vals and x must be contiguous")
-    if not (cols.device == vals.device == x.device):
-        raise ValueError(
-            f"ell_spmm: tensors on different devices: {cols.device}, "
-            f"{vals.device}, {x.device}"
-        )
-    if x.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"ell_spmm: unsupported device {x.device}")
+        raise TypeError(f"ell_spmm: x must be [N, F], got {tuple(x.shape)}")
+    _nvcc.check_operands("ell_spmm", cols=cols, vals=vals, x=x)
     if x.shape[0] == 0 and cols.numel():
-        raise ValueError("ell_spmm: x has no rows for the pack to index")
+        raise TypeError("ell_spmm: x has no rows for the pack to index")
     if x.shape[1] >= 2**31 or cols.shape[1] >= 2**31:
-        raise ValueError("ell_spmm: width and F must fit in int32")
+        raise TypeError("ell_spmm: width and F must fit in int32")
 
 
 def ell_spmm_plain(cols: torch.Tensor, vals: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
@@ -152,15 +95,13 @@ def ell_spmm(cols: torch.Tensor, vals: torch.Tensor, x: torch.Tensor) -> torch.T
     if width == 0:
         return out.zero_()
     vec4 = int(f % 4 == 0 and x.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0)
-    lib = _library()
+    lib = _nvcc.library(NAME, _declare)
     with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.ell_spmm_f32(
             cols.data_ptr(), vals.data_ptr(), x.data_ptr(), out.data_ptr(),
-            n_rows, width, f, vec4, stream,
+            n_rows, width, f, vec4, _nvcc.stream_of(x),
         )
-    if err != 0:
-        raise RuntimeError(f"ell_spmm kernel launch failed: cudaError {err}")
+    _nvcc.check_launch(NAME, err)
     ell_spmm.launches += 1
     return out
 

@@ -14,8 +14,17 @@ reference's packs entry for entry:
 - ``HybridAdj`` — ELL for the first ``width`` neighbours of each row plus a
   COO tail for the overflow of hub rows; the default above
   ``DENSE_THRESHOLD`` nodes.
+- ``BandedAdj`` — windowed dense blocks of a locality-reordered (banded)
+  graph; SpMM is a batched product of each block with its contiguous window
+  of x (the plain version of :mod:`ssrg_torch.ops.banded_spmm`). The same
+  pack on the hand-written kernel is ``ops.pallas_banded.PallasBandedAdj``.
+- ``TiledAdj`` — dense tiles of a clustered graph plus a rest engine for the
+  scattered edges (hybrid, blockcoo, or the segmented rest of
+  :mod:`ssrg_torch.ops.pallas_rest`).
+- ``BlockCOOAdj`` — COO bucketed by row bucket x column bucket.
 
-All engines compute in float32.
+All engines accumulate in float32; banded blocks and tiles may be stored in
+bf16, and their windows of x are then rounded to bf16 before the products.
 """
 
 from __future__ import annotations
@@ -27,16 +36,21 @@ import numpy as np
 import scipy.sparse as sp
 import torch
 
+from ssrg_torch.ops.banded_spmm import banded_spmm_plain
 from ssrg_torch.ops.ell_spmm import ell_spmm
 from ssrg_torch.utils import DeviceLike, resolve_device
 
-# The locality tier and its meta-engines are ported in a later slice.
-_UNPORTED_ENGINES = ("banded", "tiled", "blockcoo", "pallas_banded")
-LOCALITY_TIER = "ROADMAP.md, queue item 3 (locality tier)"
+# f32 temporaries (tile groups, windows, products, gathered rows) the plain
+# torch engines hold at once
+_GROUP_BYTES = 1 << 28
 
 
 def _round_up(x: int, m: int) -> int:
     return ((x + m - 1) // m) * m
+
+
+def _itemsize(dtype: torch.dtype) -> int:
+    return torch.empty((), dtype=dtype).element_size()
 
 
 def _check_rows(x: torch.Tensor, n_cols: int) -> None:
@@ -154,7 +168,138 @@ class HybridAdj:
         return HybridAdj(self.ell.to(device), self.tail.to(device))
 
 
-Adjacency = Union[DenseAdj, COOAdj, ELLAdj, HybridAdj]
+@dataclass
+class BandedAdj:
+    """Windowed dense-block ("banded") adjacency: for each ``row_block``-row
+    block, one dense ``[row_block, window]`` block against the contiguous
+    window of x that starts at its ``los`` entry (16-aligned, not clamped:
+    window rows past ``N`` read as zero). SpMM is the batched product of
+    :func:`ssrg_torch.ops.banded_spmm.banded_spmm_plain`, the counterpart of
+    the reference's XLA ``lax.scan`` engine."""
+
+    blocks: torch.Tensor  # f32 or bf16 [nb, row_block, window]
+    los: torch.Tensor     # int32 [nb] window start per block
+    n_rows: int
+    n_cols: int
+    row_block: int
+    # rows the reference pads x to so that no window slice clips
+    pad_to: int = 0
+
+    @property
+    def shape(self) -> Tuple[int, int]:
+        return (self.n_rows, self.n_cols)
+
+    @property
+    def window(self) -> int:
+        return int(self.blocks.shape[2])
+
+    def spmm(self, x: torch.Tensor) -> torch.Tensor:
+        _check_rows(x, self.n_cols)
+        return banded_spmm_plain(self.blocks, self.los, x)[: self.n_rows]
+
+    def to(self, device: DeviceLike) -> "BandedAdj":
+        dev = resolve_device(device)
+        return replace(self, blocks=self.blocks.to(dev), los=self.los.to(dev))
+
+
+@dataclass
+class TiledAdj:
+    """Tile-sparse dense-block adjacency: one dense ``[row_block,
+    tile_cols]`` tile for each (row block, column segment) pair that holds
+    enough edges, against the contiguous window of x at ``starts``; the
+    remaining edges go to ``rest``. SpMM multiplies groups of tiles with
+    ``torch.bmm`` and adds them into their row blocks with ``index_add_``
+    (the reference scans the tiles with XLA; neither is a Pallas kernel)."""
+
+    tiles: torch.Tensor     # f32 or bf16 [P, row_block, tile_cols]
+    starts: torch.Tensor    # int32 [P] column start per tile
+    block_of: torch.Tensor  # int32 [P] destination row block per tile
+    rest: "Adjacency"       # HybridAdj, BlockCOOAdj or RestSegmentedAdj
+    n_rows: int
+    n_cols: int
+    tiled_fraction: float = 1.0
+
+    @property
+    def shape(self) -> Tuple[int, int]:
+        return (self.n_rows, self.n_cols)
+
+    @property
+    def tile_stats(self) -> Tuple[int, int, int]:
+        p, rb, tc = self.tiles.shape
+        nb = -(-max(self.n_rows, 1) // rb)
+        return nb, p, rb * tc
+
+    def spmm(self, x: torch.Tensor) -> torch.Tensor:
+        _check_rows(x, self.n_cols)
+        p, rb, tc = self.tiles.shape
+        f = x.shape[1]
+        nb = -(-max(self.n_rows, 1) // rb)
+        xp = x
+        if tc > x.shape[0]:  # tiny graph
+            xp = torch.cat([x, x.new_zeros((tc - x.shape[0], f))])
+        if self.tiles.dtype == torch.bfloat16:
+            xp = xp.to(torch.bfloat16).float()
+        acc = torch.zeros((nb, rb, f), dtype=torch.float32, device=x.device)
+        offs = torch.arange(tc, device=x.device)
+        step = max(1, _GROUP_BYTES // (4 * (rb * tc + tc * f + rb * f)))
+        for p0 in range(0, p, step):
+            windows = xp[self.starts[p0:p0 + step].long()[:, None] + offs]
+            prod = torch.bmm(self.tiles[p0:p0 + step].float(), windows)
+            acc.index_add_(0, self.block_of[p0:p0 + step], prod)
+        out = acc.view(nb * rb, f)[: self.n_rows]
+        return out + self.rest.spmm(x)
+
+    def to(self, device: DeviceLike) -> "TiledAdj":
+        dev = resolve_device(device)
+        return replace(self, tiles=self.tiles.to(dev), starts=self.starts.to(dev),
+                       block_of=self.block_of.to(dev), rest=self.rest.to(dev))
+
+
+@dataclass
+class BlockCOOAdj:
+    """COO bucketed by (column bucket, row bucket): ``[nb_c, nb_r, L]``
+    arrays of bucket-local row and column ids, padded to the fullest bucket
+    (pad entries: local row 0, local col 0, val 0). SpMM gathers each
+    entry's row inside its column bucket's window of x and ``index_add_``s
+    it into its row bucket."""
+
+    rows: torch.Tensor  # int32 [nb_c, nb_r, L], local to the row bucket
+    cols: torch.Tensor  # int32 [nb_c, nb_r, L], local to the column bucket
+    vals: torch.Tensor  # f32   [nb_c, nb_r, L]
+    n_rows: int
+    n_cols: int
+    row_bucket: int
+    col_bucket: int
+
+    @property
+    def shape(self) -> Tuple[int, int]:
+        return (self.n_rows, self.n_cols)
+
+    def spmm(self, x: torch.Tensor) -> torch.Tensor:
+        _check_rows(x, self.n_cols)
+        nb_c, nb_r, length = self.rows.shape
+        f = x.shape[1]
+        rb, cb = self.row_bucket, self.col_bucket
+        out = torch.zeros((nb_r * rb, f), dtype=torch.float32, device=x.device)
+        step = max(1, _GROUP_BYTES // (4 * max(f, 1)))
+        for j in range(nb_c):
+            xw = x[j * cb:(j + 1) * cb]
+            for i in range(nb_r):
+                dst = out[i * rb:(i + 1) * rb]
+                for s in range(0, length, step):
+                    c = self.cols[j, i, s:s + step]
+                    v = self.vals[j, i, s:s + step]
+                    dst.index_add_(0, self.rows[j, i, s:s + step],
+                                   xw.index_select(0, c) * v[:, None])
+        return out[: self.n_rows]
+
+    def to(self, device: DeviceLike) -> "BlockCOOAdj":
+        dev = resolve_device(device)
+        return replace(self, rows=self.rows.to(dev), cols=self.cols.to(dev),
+                       vals=self.vals.to(dev))
+
+
+Adjacency = Union[DenseAdj, COOAdj, ELLAdj, HybridAdj, BandedAdj, TiledAdj, BlockCOOAdj]
 
 
 # ---------------------------------------------------------------------------
@@ -249,6 +394,195 @@ def build_hybrid(
     return HybridAdj(ell, build_coo(tail, chunk=chunk))
 
 
+def build_banded(
+    adj: sp.spmatrix,
+    row_block: int = 256,
+    lane_pad: int = 128,
+    dtype: torch.dtype = torch.float32,
+    mem_budget_bytes: int = 2 << 30,
+) -> BandedAdj:
+    """Pack a (locality-reordered) adjacency into windowed dense blocks.
+
+    The window is the widest column span of a row block (from a 16-aligned
+    start) rounded up to ``lane_pad``. Raises ``ValueError`` when the blocks
+    would exceed ``mem_budget_bytes``: the graph is not banded enough
+    (reorder it first, or use the hybrid engine)."""
+    csr = adj.tocsr()
+    n, m = csr.shape
+    nb = -(-max(n, 1) // row_block)
+
+    lo = np.zeros(nb, np.int64)
+    hi = np.zeros(nb, np.int64)
+    for b in range(nb):
+        r0, r1 = b * row_block, min((b + 1) * row_block, n)
+        cols_b = csr.indices[csr.indptr[r0]: csr.indptr[r1]]
+        if cols_b.size:
+            lo[b], hi[b] = cols_b.min(), cols_b.max()
+    lo = (lo // 16) * 16
+    window = int((hi - lo).max()) + 1 if n else 1
+    window = _round_up(max(window, 1), lane_pad)
+    need = nb * row_block * window * _itemsize(dtype)
+    if need > mem_budget_bytes:
+        raise ValueError(
+            f"banded pack needs {need/2**30:.2f} GiB (window={window}) > "
+            f"budget {mem_budget_bytes/2**30:.2f} GiB; graph is not banded "
+            f"enough — RCM-reorder it or use engine='hybrid'"
+        )
+    pad_to = int((lo + window).max()) if n else window
+
+    blocks = np.zeros((nb, row_block, window), np.float32)
+    rows_of = np.repeat(np.arange(n), np.diff(csr.indptr))
+    block_of = rows_of // row_block
+    blocks[block_of, rows_of % row_block, csr.indices - lo[block_of]] = csr.data
+    # the f32 pack is handed over without a copy; a bf16 pack is rounded once
+    blocks_t = torch.from_numpy(blocks)
+    if dtype != torch.float32:
+        blocks_t = blocks_t.to(dtype)
+    return BandedAdj(blocks_t, torch.from_numpy(lo.astype(np.int32)),
+                     n_rows=n, n_cols=m, row_block=row_block, pad_to=pad_to)
+
+
+def build_blockcoo(
+    adj: sp.spmatrix,
+    row_bucket: int = 1 << 18,
+    col_bucket: int = 1 << 19,
+    lane_pad: int = 512,
+) -> BlockCOOAdj:
+    """Pack any sparse matrix into the bucketed COO layout (entries grouped
+    by column bucket, then row bucket, padded to the fullest bucket)."""
+    coo = adj.tocoo()
+    n, m = coo.shape
+    nb_r = -(-max(n, 1) // row_bucket)
+    nb_c = -(-max(m, 1) // col_bucket)
+    key = (coo.col // col_bucket).astype(np.int64) * nb_r + coo.row // row_bucket
+    order = np.argsort(key, kind="stable")
+    key_s = key[order]
+    counts = np.bincount(key_s, minlength=nb_r * nb_c)
+    length = _round_up(max(int(counts.max()), 1), lane_pad)
+    starts = np.zeros(nb_r * nb_c, np.int64)
+    np.cumsum(counts[:-1], out=starts[1:])
+    pos = np.arange(key_s.size) - starts[key_s]
+    rows = np.zeros((nb_c * nb_r, length), np.int32)
+    cols = np.zeros((nb_c * nb_r, length), np.int32)
+    vals = np.zeros((nb_c * nb_r, length), np.float32)
+    rows[key_s, pos] = (coo.row[order] % row_bucket).astype(np.int32)
+    cols[key_s, pos] = (coo.col[order] % col_bucket).astype(np.int32)
+    vals[key_s, pos] = coo.data[order].astype(np.float32)
+    shape = (nb_c, nb_r, length)
+    return BlockCOOAdj(
+        torch.from_numpy(rows.reshape(shape)), torch.from_numpy(cols.reshape(shape)),
+        torch.from_numpy(vals.reshape(shape)),
+        n_rows=n, n_cols=m, row_bucket=row_bucket, col_bucket=col_bucket,
+    )
+
+
+def build_tiled(
+    adj: sp.spmatrix,
+    row_block: int = 256,
+    tile_cols: int = 512,
+    min_edges_per_tile: int = 48,
+    dtype: torch.dtype = torch.float32,
+    mem_budget_bytes: int = 4 << 30,
+    min_tiled_fraction: float = 0.25,
+    device_scatter: bool = True,
+    rest_engine: str = "auto",
+    rest_gather_bf16: bool = False,
+    device: DeviceLike = "cuda",
+) -> TiledAdj:
+    """Pack a clustered adjacency into dense tiles plus a rest engine.
+
+    A (row block, column segment) pair becomes a tile when it holds at least
+    ``min_edges_per_tile`` edges; each tile's window starts at its segment,
+    clamped to ``m - tile_cols``. Raises ``ValueError`` when fewer than
+    ``min_tiled_fraction`` of the edges land in tiles (the graph is not
+    clustered enough) or the tiles would exceed ``mem_budget_bytes``.
+
+    ``rest_engine`` packs the other edges: ``hybrid``, ``blockcoo``,
+    ``onehot`` (:func:`ssrg_torch.ops.pallas_rest.build_rest_segmented`,
+    row blocks and chunks of 1024), or ``auto``: above 2^19 nodes
+    ``onehot`` when ``device`` is a CUDA device and the reference's slab
+    estimate (F = 128, f32) stays within 3 GiB, else ``blockcoo``; hybrid
+    below. ``device`` only steers that choice and the rest's executor; the
+    pack is returned on the host. The tiles are always filled on the host:
+    ``device_scatter`` is accepted for the reference's signature."""
+    csr = adj.tocsr()
+    n, m = csr.shape
+
+    rows_of = np.repeat(np.arange(n), np.diff(csr.indptr))
+    block_of = rows_of // row_block
+    seg_of = csr.indices // tile_cols
+    num_segs = -(-m // tile_cols)
+    pair_key = block_of.astype(np.int64) * num_segs + seg_of
+    uniq, counts = np.unique(pair_key, return_counts=True)
+    dense_pairs = uniq[counts >= min_edges_per_tile]
+    dense_set = np.isin(pair_key, dense_pairs)
+
+    tiled_frac = dense_set.sum() / max(csr.nnz, 1)
+    if tiled_frac < min_tiled_fraction:
+        raise ValueError(
+            f"only {tiled_frac:.1%} of edges fall in dense "
+            f"{row_block}x{tile_cols} tiles (>= {min_edges_per_tile} edges); "
+            f"graph is not clustered enough — use engine='hybrid'"
+        )
+    blocks_of_pairs = (dense_pairs // num_segs).astype(np.int64)
+    segs_of_pairs = (dense_pairs % num_segs).astype(np.int64)
+    p_num = len(dense_pairs)
+    need = p_num * row_block * tile_cols * _itemsize(dtype)
+    if need > mem_budget_bytes:
+        raise ValueError(
+            f"tiled pack needs {need/2**30:.2f} GiB ({p_num} tiles) > budget "
+            f"{mem_budget_bytes/2**30:.2f} GiB"
+        )
+    pair_start = np.minimum(
+        segs_of_pairs * tile_cols, max(m - tile_cols, 0)
+    ).astype(np.int32)
+
+    data = csr.data.astype(np.float32)
+    cols = csr.indices
+    dense_idx = np.where(dense_set)[0]
+    pair_rank = np.searchsorted(dense_pairs, pair_key[dense_idx])
+
+    rest_mask = ~dense_set
+    rest = sp.coo_matrix(
+        (data[rest_mask], (rows_of[rest_mask], cols[rest_mask])), shape=(n, m)
+    ).tocsr()
+    # the rest engines need at least one edge: add a zero-weight one
+    if rest.nnz == 0:
+        rest = sp.coo_matrix(
+            (np.zeros(1, np.float32), ([0], [0])), shape=(n, m)
+        ).tocsr()
+    on_card = torch.device(device).type == "cuda"
+    if rest_engine == "auto":
+        if n > (1 << 19):
+            slab_est = int(rest.nnz * 1.25) * 128 * 4
+            rest_engine = "onehot" if on_card and slab_est <= (3 << 30) else "blockcoo"
+        else:
+            rest_engine = "hybrid"
+    if rest_engine == "onehot":
+        from ssrg_torch.ops.pallas_rest import build_rest_segmented
+
+        rest_pack = build_rest_segmented(
+            rest, row_block=1024, chunk=1024, gather_bf16=rest_gather_bf16,
+            device=device,
+        )
+    elif rest_engine == "blockcoo":
+        rest_pack = build_blockcoo(rest)
+    else:
+        rest_pack = build_hybrid(rest)
+
+    tiles = np.zeros((p_num, row_block, tile_cols), np.float32)
+    tiles[pair_rank, rows_of[dense_idx] % row_block,
+          cols[dense_idx] - pair_start[pair_rank]] = data[dense_idx]
+    tiles_t = torch.from_numpy(tiles)
+    if dtype != torch.float32:
+        tiles_t = tiles_t.to(dtype)
+    return TiledAdj(
+        tiles_t, torch.from_numpy(pair_start),
+        torch.from_numpy(blocks_of_pairs.astype(np.int32)),
+        rest_pack, n_rows=n, n_cols=m, tiled_fraction=float(tiled_frac),
+    )
+
+
 # "auto" crossover, as in the reference. The H100 dense/hybrid crossover is
 # not measured yet.
 DENSE_THRESHOLD = 8192
@@ -265,7 +599,8 @@ def device_adjacency(
 
     ``auto`` is dense up to ``dense_threshold`` rows and hybrid above;
     ``pallas`` is the ELL + tail pack of :mod:`ssrg_torch.ops.pallas_spmm`
-    (8-row blocks, p90 width) on the same kernel."""
+    (8-row blocks, p90 width) on the same kernel; ``pallas_banded`` is the
+    banded pack on the kernel of :mod:`ssrg_torch.ops.banded_spmm`."""
     dev = resolve_device(device)
     if engine == "auto":
         engine = "dense" if adj.shape[0] <= dense_threshold else "hybrid"
@@ -281,10 +616,16 @@ def device_adjacency(
         from ssrg_torch.ops.pallas_spmm import build_pallas_csr
 
         built = build_pallas_csr(adj, **kwargs)
-    elif engine in _UNPORTED_ENGINES:
-        raise NotImplementedError(
-            f"spmm engine {engine!r} is not ported yet: {LOCALITY_TIER}"
-        )
+    elif engine == "blockcoo":
+        built = build_blockcoo(adj, **kwargs)
+    elif engine == "banded":
+        built = build_banded(adj, **kwargs)
+    elif engine == "tiled":
+        built = build_tiled(adj, device=dev, **kwargs)
+    elif engine == "pallas_banded":
+        from ssrg_torch.ops.pallas_banded import build_pallas_banded
+
+        built = build_pallas_banded(adj, **kwargs)
     else:
         raise ValueError(f"unknown spmm engine: {engine!r}")
     return built.to(dev)

@@ -1,6 +1,7 @@
-"""The ELL SpMM wrapper of ``ssrg_torch``: its plain version against a
-float64 numpy product on ragged packs, its refusals, and, on a CUDA card,
-the hand-written kernel against the plain version.
+"""The kernel wrappers of ``ssrg_torch`` (ELL, banded and rest SpMM): each
+plain version against a float64 numpy product on ragged packs, each
+wrapper's refusals, and, on a CUDA card, each hand-written kernel against
+its plain version.
 
 This file imports neither jax nor ``ssrg_tpu``, so the ``cuda``-marked
 tests also run where only the port is installed:
@@ -14,7 +15,10 @@ import scipy.sparse as sp
 import torch
 
 from ssrg_torch.ops import sparse
+from ssrg_torch.ops.banded_spmm import banded_spmm, banded_spmm_plain
 from ssrg_torch.ops.ell_spmm import ell_spmm, ell_spmm_plain
+from ssrg_torch.ops.pallas_rest import build_rest_segmented
+from ssrg_torch.ops.rest_spmm import rest_spmm, rest_spmm_plain
 
 ELL_CASES = [  # (rows, n, width, f, empty_fraction)
     (37, 50, 1, 128, 0.0),
@@ -27,7 +31,7 @@ ELL_CASES = [  # (rows, n, width, f, empty_fraction)
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card: the ELL SpMM kernel runs only there")
+        pytest.skip("needs a CUDA card: the port's kernels run only there")
     return torch.device("cuda")
 
 
@@ -59,11 +63,11 @@ def test_ell_spmm_refuses_what_the_kernel_does_not_take():
         ell_spmm(c.long(), v, xx)
     with pytest.raises(TypeError):
         ell_spmm(c, v, xx.double())
-    with pytest.raises(ValueError):
+    with pytest.raises(TypeError):
         ell_spmm(c, v[:, :3].contiguous(), xx)
-    with pytest.raises(ValueError):
+    with pytest.raises(TypeError):
         ell_spmm(c, v, xx.t())  # not contiguous
-    with pytest.raises(ValueError):
+    with pytest.raises(TypeError):
         ell_spmm(c, v, torch.empty(20, 8, device="meta"))
     with pytest.raises(ValueError):
         sparse.build_ell(sp.random(20, 20, 0.2, format="csr", random_state=0)).spmm(xx[:10])
@@ -80,3 +84,133 @@ def test_ell_spmm_kernel_matches_plain(cuda_device, case):
     assert ell_spmm.launches == before + 1
     np.testing.assert_allclose(out.cpu().numpy(), ell_spmm_plain(c, v, xx).cpu().numpy(),
                                rtol=1e-5, atol=1e-5)
+
+
+# --- banded SpMM -------------------------------------------------------------
+
+BANDED_CASES = [  # (nb, rb, w, n, f, blocks dtype, round_x)
+    (5, 64, 128, 300, 50, "f32", False),      # ragged F
+    (4, 64, 256, 200, 16, "f32", False),      # windows past N, empty row blocks
+    (3, 100, 96, 290, 130, "bf16", False),    # rb not a multiple of the tile, F > 128
+    (6, 32, 48, 150, 8, "f32", True),         # a bf16 window over f32 blocks
+]
+
+
+def _bf16(a):
+    return torch.from_numpy(np.asarray(a, np.float32)).bfloat16().float().numpy()
+
+
+def _banded_case(nb, rb, w, n, f, dtype, round_x, seed=0):
+    rng = np.random.default_rng(seed)
+    blocks = rng.normal(size=(nb, rb, w)).astype(np.float32)
+    blocks[rng.uniform(size=(nb, rb, w)) < 0.7] = 0.0
+    blocks[1] = 0.0                                    # an empty row block
+    los = (rng.integers(0, max(n - w // 2, 1), nb) // 16 * 16).astype(np.int32)
+    los[-1] = (n - 8) // 16 * 16                       # its window runs past N
+    x = rng.normal(size=(n, f)).astype(np.float32)
+    bt = torch.from_numpy(blocks)
+    if dtype == "bf16":
+        bt = bt.bfloat16()
+        blocks = bt.float().numpy()
+    xt = _bf16(x) if (round_x or dtype == "bf16") else x
+    xp = np.concatenate([xt, np.zeros((int(los.max()) + w, f), np.float32)]).astype(np.float64)
+    expected = np.concatenate([blocks[b] @ xp[los[b]:los[b] + w] for b in range(nb)])
+    return bt, torch.from_numpy(los), torch.from_numpy(x), expected
+
+
+@pytest.mark.parametrize("case", BANDED_CASES, ids=lambda c: "nb{}_rb{}_w{}_n{}_f{}_{}_{}".format(*c))
+def test_banded_spmm_plain_ragged(case):
+    blocks, los, x, expected = _banded_case(*case)
+    before = banded_spmm.launches
+    out = banded_spmm(blocks, los, x, round_x=case[-1])
+    assert banded_spmm.launches == before
+    assert out.shape == (case[0] * case[1], case[4]) and out.dtype == torch.float32
+    np.testing.assert_allclose(out.numpy(), expected, rtol=3e-5, atol=3e-5)
+
+
+def test_banded_spmm_refuses_what_the_kernel_does_not_take():
+    blocks, los, x, _ = _banded_case(*BANDED_CASES[0])
+    for args in ((blocks.double(), los, x), (blocks, los.long(), x), (blocks, los, x.double()),
+                 (blocks, los[:2], x), (blocks[0], los, x), (blocks, los, x.t()),
+                 (blocks, los, torch.empty(300, 50, device="meta"))):
+        with pytest.raises(TypeError):
+            banded_spmm(*args)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", BANDED_CASES, ids=lambda c: "nb{}_rb{}_w{}_n{}_f{}_{}_{}".format(*c))
+def test_banded_spmm_kernel_matches_plain(cuda_device, case):
+    blocks, los, x, _ = (t.to(cuda_device) if torch.is_tensor(t) else t
+                         for t in _banded_case(*case))
+    before = banded_spmm.launches
+    out = banded_spmm(blocks, los, x, round_x=case[-1])
+    torch.cuda.synchronize()
+    assert banded_spmm.launches == before + 1
+    np.testing.assert_allclose(out.cpu().numpy(),
+                               banded_spmm_plain(blocks, los, x, case[-1]).cpu().numpy(),
+                               rtol=1e-5, atol=1e-5)
+
+
+# --- rest SpMM ----------------------------------------------------------------
+
+REST_CASES = [  # (n_rows, n_cols, edges, row_block, chunk, f, long_row, gather_bf16)
+    (700, 700, 2100, 64, 128, 50, False, False),   # ragged F
+    (512, 512, 0, 64, 128, 16, False, True),       # edge-free row blocks (4 edges below)
+    (300, 300, 900, 32, 64, 37, True, False),      # one row across several chunks
+    (200, 350, 600, 64, 128, 160, False, True),    # rectangular table, F > 128
+]
+
+
+def _rest_case(n, m, e, rb, chunk, f, long_row, gather_bf16, seed=0):
+    rng = np.random.default_rng(seed)
+    r, c = rng.integers(0, n, e), rng.integers(0, m, e)
+    if e == 0:
+        r, c = np.array([0, 1, 500, 500]), np.array([3, 4, 5, 6])
+    if long_row:
+        r, c = np.concatenate([r, np.full(m, 17)]), np.concatenate([c, np.arange(m)])
+    adj = sp.csr_matrix((rng.uniform(0.1, 1.0, r.size).astype(np.float32), (r, c)),
+                        shape=(n, m))
+    adj.sum_duplicates()
+    pack = build_rest_segmented(adj, row_block=rb, chunk=chunk, gather_bf16=gather_bf16,
+                                device="cpu")
+    x = rng.normal(size=(m, f)).astype(np.float32)
+    coo = adj.tocoo()
+    if gather_bf16:
+        terms = _bf16(_bf16(x[coo.col]) * _bf16(coo.data)[:, None])
+    else:
+        terms = x[coo.col] * coo.data[:, None]
+    expected = np.zeros((pack.row_ptr.shape[0] - 1, f))
+    np.add.at(expected, coo.row, terms.astype(np.float64))
+    return pack, torch.from_numpy(x), expected
+
+
+@pytest.mark.parametrize("case", REST_CASES, ids=lambda c: "n{}_m{}_e{}_rb{}_c{}_f{}_{}_{}".format(*c))
+def test_rest_spmm_plain_ragged(case):
+    pack, x, expected = _rest_case(*case)
+    before = rest_spmm.launches
+    out = rest_spmm(pack.row_ptr, pack.cols, pack.vals, x, gather_bf16=case[-1])
+    assert rest_spmm.launches == before
+    np.testing.assert_allclose(out.numpy(), expected, rtol=3e-5, atol=3e-5)
+
+
+def test_rest_spmm_refuses_what_the_kernel_does_not_take():
+    pack, x, _ = _rest_case(*REST_CASES[0])
+    rp, c, v = pack.row_ptr, pack.cols, pack.vals
+    for args in ((rp.int(), c, v, x), (rp, c.long(), v, x), (rp, c, v.double(), x),
+                 (rp, c, v[:, :5], x), (rp[None], c, v, x), (rp, c, v, x[0]),
+                 (rp, c, v, x.t()), (rp, c, v, torch.empty(700, 50, device="meta"))):
+        with pytest.raises(TypeError):
+            rest_spmm(*args)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", REST_CASES, ids=lambda c: "n{}_m{}_e{}_rb{}_c{}_f{}_{}_{}".format(*c))
+def test_rest_spmm_kernel_matches_plain(cuda_device, case):
+    pack, x, _ = _rest_case(*case)
+    pack, x = pack.to(cuda_device), x.to(cuda_device)
+    before = rest_spmm.launches
+    out = rest_spmm(pack.row_ptr, pack.cols, pack.vals, x, gather_bf16=case[-1])
+    torch.cuda.synchronize()
+    assert rest_spmm.launches == before + 1
+    plain = rest_spmm_plain(pack.row_ptr, pack.cols, pack.vals, x, case[-1])
+    np.testing.assert_allclose(out.cpu().numpy(), plain.cpu().numpy(), rtol=1e-5, atol=1e-5)

@@ -191,9 +191,6 @@ def test_unported_paths_raise(datasets):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             load_model(ModelConfig(model_name=name), 48, 4)
     spec = load_model(ModelConfig(model_name="sgc"), 48, 4)
-    for engine in ("autotune", "reorder_banded", "reorder_tiled"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            prepare(spec, ds, ModelConfig(), TrainingConfig(spmm_engine=engine), device=CPU)
     for flags in (dict(naive=True), dict(spectral=True), dict(graph_op="magnetic"),
                   dict(graph_op=None)):
         other = ModelSpec(**{**dict(name="x", graph_op="sym", module=spec.module), **flags})

@@ -160,9 +160,9 @@ def test_device_adjacency_dispatch_and_refusals():
     assert isinstance(sparse.device_adjacency(adj, dense_threshold=32, device=CPU),
                       sparse.HybridAdj)
     assert isinstance(sparse.device_adjacency(adj, "pallas", device=CPU), PallasELLAdj)
-    for engine in ("banded", "tiled", "blockcoo", "pallas_banded"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            sparse.device_adjacency(adj, engine, device=CPU)
+    assert isinstance(sparse.device_adjacency(adj, "banded", device=CPU), sparse.BandedAdj)
+    assert isinstance(sparse.device_adjacency(adj, "blockcoo", device=CPU), sparse.BlockCOOAdj)
+    assert isinstance(sparse.device_adjacency(adj, "tiled", device=CPU), sparse.TiledAdj)
     with pytest.raises(ValueError):
         sparse.device_adjacency(adj, "nope", device=CPU)
 
