@@ -42,6 +42,9 @@ class RestSegmentedAdj:
     - ``row_ptr``  int64 ``[nb * row_block + 1]``: the entries of output row
       ``r`` are the flat positions ``[row_ptr[r], row_ptr[r+1])`` of the
       layout (a block's pad entries fall in its last row's range)
+    - ``row_end``  int64 ``[nb * row_block]``: one past row ``r``'s last real
+      entry; ``row_ptr[r+1]`` except on a block's last row, where it stops
+      before the block's pad entries
     """
 
     rows: torch.Tensor
@@ -49,6 +52,7 @@ class RestSegmentedAdj:
     vals: torch.Tensor
     block_of: torch.Tensor
     row_ptr: torch.Tensor
+    row_end: torch.Tensor
     n_rows: int
     n_cols: int
     row_block: int
@@ -120,14 +124,14 @@ class RestSegmentedAdj:
                 f"rest engines which stream without materializing."
             )
         _check_rows(x, self.n_cols)
-        out = rest_spmm(self.row_ptr, self.cols, self.vals, x, self.gather_bf16)
+        out = rest_spmm(self.row_ptr, self.row_end, self.cols, self.vals, x, self.gather_bf16)
         return out[: self.n_rows]
 
     def to(self, device: DeviceLike) -> "RestSegmentedAdj":
         dev = resolve_device(device)
         return replace(self, rows=self.rows.to(dev), cols=self.cols.to(dev),
                        vals=self.vals.to(dev), block_of=self.block_of.to(dev),
-                       row_ptr=self.row_ptr.to(dev))
+                       row_ptr=self.row_ptr.to(dev), row_end=self.row_end.to(dev))
 
 
 def build_rest_segmented(
@@ -141,8 +145,8 @@ def build_rest_segmented(
     """Host pack: sort the entries by (row, col), bucket them by row block,
     pad each block's list to a multiple of ``chunk`` (an edge-free block
     gets one all-pad chunk), emit the flat ``[P, C]`` arrays, ``block_of``
-    and the derived ``row_ptr``. ``default_executor="auto"`` is ``pallas``
-    (the kernel) when ``device`` is a CUDA device, ``xla`` on the CPU;
+    and the derived ``row_ptr`` and ``row_end``. ``default_executor="auto"``
+    is ``pallas`` (the kernel) when ``device`` is a CUDA device, ``xla`` on the CPU;
     ``device`` steers only that choice, and the pack is returned on the
     host."""
     coo = adj.tocoo()
@@ -176,14 +180,16 @@ def build_rest_segmented(
         block_of = [np.zeros(1, np.int32)]
 
     # row r of block b starts after the chunks of blocks < b and the entries
-    # of block b's rows < r
+    # of block b's rows < r, and ends before those of its rows <= r: on the
+    # block's last row that is before the block's pad entries
     first_chunk = np.concatenate([[0], np.cumsum(chunks_of_block)])
     out_rows = np.arange(nb * row_block)
     b_of = out_rows // row_block
+    block_start = first_chunk[b_of] * chunk - starts[b_of]
     row_ptr = np.empty(nb * row_block + 1, np.int64)
-    row_ptr[:-1] = (first_chunk[b_of] * chunk
-                    + np.searchsorted(r, out_rows) - starts[b_of])
+    row_ptr[:-1] = block_start + np.searchsorted(r, out_rows)
     row_ptr[-1] = first_chunk[-1] * chunk
+    row_end = block_start + np.searchsorted(r, out_rows + 1)
 
     if default_executor == "auto":
         default_executor = "pallas" if torch.device(device).type == "cuda" else "xla"
@@ -193,6 +199,7 @@ def build_rest_segmented(
         vals=torch.from_numpy(np.concatenate(vals_chunks)),
         block_of=torch.from_numpy(np.concatenate(block_of)),
         row_ptr=torch.from_numpy(row_ptr),
+        row_end=torch.from_numpy(row_end),
         n_rows=n_rows, n_cols=n_cols, row_block=row_block,
         gather_bf16=gather_bf16, default_executor=default_executor,
     )

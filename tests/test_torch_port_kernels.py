@@ -20,6 +20,10 @@ from ssrg_torch.ops.ell_spmm import ell_spmm, ell_spmm_plain
 from ssrg_torch.ops.pallas_rest import build_rest_segmented
 from ssrg_torch.ops.rest_spmm import rest_spmm, rest_spmm_plain
 
+# f32 unit roundoff: a kernel and its plain version that sum the same c terms
+# of a row in another order differ by at most 2 * c * u * sum|term|
+UNIT_ROUNDOFF = 2.0 ** -24
+
 ELL_CASES = [  # (rows, n, width, f, empty_fraction)
     (37, 50, 1, 128, 0.0),
     (1003, 777, 7, 50, 0.1),
@@ -88,11 +92,18 @@ def test_ell_spmm_kernel_matches_plain(cuda_device, case):
 
 # --- banded SpMM -------------------------------------------------------------
 
-BANDED_CASES = [  # (nb, rb, w, n, f, blocks dtype, round_x)
+BANDED_CASES = [  # (nb, rb, w, n, f, blocks dtype, round_x[, dense_rows])
     (5, 64, 128, 300, 50, "f32", False),      # ragged F
     (4, 64, 256, 200, 16, "f32", False),      # windows past N, empty row blocks
     (3, 100, 96, 290, 130, "bf16", False),    # rb not a multiple of the tile, F > 128
     (6, 32, 48, 150, 8, "f32", True),         # a bf16 window over f32 blocks
+    (3, 16, 1024, 1300, 128, "f32", False, True),   # rows with every entry nonzero
+    (3, 16, 1040, 1300, 64, "bf16", False, True),   # the same in bf16
+    (4, 24, 37, 120, 16, "f32", False),       # W not a multiple of 4
+    (3, 40, 45, 100, 20, "bf16", False),      # W not a multiple of 8
+    (4, 32, 64, 130, 4, "f32", False),        # F = 4
+    (4, 64, 256, 400, 128, "f32", False),     # F = 128, the last window past N
+    (3, 128, 384, 600, 128, "bf16", False),   # the same in bf16
 ]
 
 
@@ -100,11 +111,13 @@ def _bf16(a):
     return torch.from_numpy(np.asarray(a, np.float32)).bfloat16().float().numpy()
 
 
-def _banded_case(nb, rb, w, n, f, dtype, round_x, seed=0):
+def _banded_case(nb, rb, w, n, f, dtype, round_x, dense_rows=False, seed=0):
     rng = np.random.default_rng(seed)
     blocks = rng.normal(size=(nb, rb, w)).astype(np.float32)
     blocks[rng.uniform(size=(nb, rb, w)) < 0.7] = 0.0
     blocks[1] = 0.0                                    # an empty row block
+    if dense_rows:  # every entry of the first three rows nonzero
+        blocks[0, :3] = rng.uniform(0.1, 1.0, size=(3, w)).astype(np.float32)
     los = (rng.integers(0, max(n - w // 2, 1), nb) // 16 * 16).astype(np.int32)
     los[-1] = (n - 8) // 16 * 16                       # its window runs past N
     x = rng.normal(size=(n, f)).astype(np.float32)
@@ -122,7 +135,7 @@ def _banded_case(nb, rb, w, n, f, dtype, round_x, seed=0):
 def test_banded_spmm_plain_ragged(case):
     blocks, los, x, expected = _banded_case(*case)
     before = banded_spmm.launches
-    out = banded_spmm(blocks, los, x, round_x=case[-1])
+    out = banded_spmm(blocks, los, x, round_x=case[6])
     assert banded_spmm.launches == before
     assert out.shape == (case[0] * case[1], case[4]) and out.dtype == torch.float32
     np.testing.assert_allclose(out.numpy(), expected, rtol=3e-5, atol=3e-5)
@@ -143,28 +156,41 @@ def test_banded_spmm_kernel_matches_plain(cuda_device, case):
     blocks, los, x, _ = (t.to(cuda_device) if torch.is_tensor(t) else t
                          for t in _banded_case(*case))
     before = banded_spmm.launches
-    out = banded_spmm(blocks, los, x, round_x=case[-1])
+    out = banded_spmm(blocks, los, x, round_x=case[6])
     torch.cuda.synchronize()
     assert banded_spmm.launches == before + 1
-    np.testing.assert_allclose(out.cpu().numpy(),
-                               banded_spmm_plain(blocks, los, x, case[-1]).cpu().numpy(),
-                               rtol=1e-5, atol=1e-5)
+    # the kernel adds only the nonzero entries' products, the plain version
+    # all of them, in another order: c terms for a row of c nonzeros
+    counts = (blocks != 0).sum(dim=2).reshape(-1, 1)
+    tol = 2.0 * counts * UNIT_ROUNDOFF * banded_spmm_plain(blocks.abs(), los, x.abs(), case[6])
+    diff = (out - banded_spmm_plain(blocks, los, x, case[6])).abs()
+    assert bool((diff <= tol + 1e-30).all()), float(diff.max())
 
 
 # --- rest SpMM ----------------------------------------------------------------
 
-REST_CASES = [  # (n_rows, n_cols, edges, row_block, chunk, f, long_row, gather_bf16)
+REST_CASES = [  # (n_rows, n_cols, edges, row_block, chunk, f, long_row, gather_bf16[, rows])
     (700, 700, 2100, 64, 128, 50, False, False),   # ragged F
     (512, 512, 0, 64, 128, 16, False, True),       # edge-free row blocks (4 edges below)
     (300, 300, 900, 32, 64, 37, True, False),      # one row across several chunks
     (200, 350, 600, 64, 128, 160, False, True),    # rectangular table, F > 128
+    (600, 700, 0, 64, 128, 128, False, False, "short"),   # F = 128, rows of 1-3 entries
+    (512, 400, 0, 64, 96, 128, False, True, "pad_last"),  # blocks' last rows edge-free, pads
 ]
 
 
-def _rest_case(n, m, e, rb, chunk, f, long_row, gather_bf16, seed=0):
+def _rest_case(n, m, e, rb, chunk, f, long_row, gather_bf16, rows=None, seed=0):
+    """``rows="short"`` gives row r 1 + r % 3 entries; ``"pad_last"`` the
+    same but none on each block's last row, whose block still has pads."""
     rng = np.random.default_rng(seed)
     r, c = rng.integers(0, n, e), rng.integers(0, m, e)
-    if e == 0:
+    if rows is not None:
+        counts = 1 + np.arange(n) % 3
+        if rows == "pad_last":
+            counts[rb - 1::rb] = 0
+        r = np.repeat(np.arange(n), counts)
+        c = rng.integers(0, m, r.size)
+    elif e == 0:
         r, c = np.array([0, 1, 500, 500]), np.array([3, 4, 5, 6])
     if long_row:
         r, c = np.concatenate([r, np.full(m, 17)]), np.concatenate([c, np.arange(m)])
@@ -188,17 +214,18 @@ def _rest_case(n, m, e, rb, chunk, f, long_row, gather_bf16, seed=0):
 def test_rest_spmm_plain_ragged(case):
     pack, x, expected = _rest_case(*case)
     before = rest_spmm.launches
-    out = rest_spmm(pack.row_ptr, pack.cols, pack.vals, x, gather_bf16=case[-1])
+    out = rest_spmm(pack.row_ptr, pack.row_end, pack.cols, pack.vals, x, gather_bf16=case[7])
     assert rest_spmm.launches == before
     np.testing.assert_allclose(out.numpy(), expected, rtol=3e-5, atol=3e-5)
 
 
 def test_rest_spmm_refuses_what_the_kernel_does_not_take():
     pack, x, _ = _rest_case(*REST_CASES[0])
-    rp, c, v = pack.row_ptr, pack.cols, pack.vals
-    for args in ((rp.int(), c, v, x), (rp, c.long(), v, x), (rp, c, v.double(), x),
-                 (rp, c, v[:, :5], x), (rp[None], c, v, x), (rp, c, v, x[0]),
-                 (rp, c, v, x.t()), (rp, c, v, torch.empty(700, 50, device="meta"))):
+    rp, re, c, v = pack.row_ptr, pack.row_end, pack.cols, pack.vals
+    for args in ((rp.int(), re, c, v, x), (rp, re.int(), c, v, x), (rp, re, c.long(), v, x),
+                 (rp, re, c, v.double(), x), (rp, re, c, v[:, :5], x), (rp[None], re, c, v, x),
+                 (rp, re[:-1], c, v, x), (rp, re, c, v, x[0]), (rp, re, c, v, x.t()),
+                 (rp, re, c, v, torch.empty(700, 50, device="meta"))):
         with pytest.raises(TypeError):
             rest_spmm(*args)
 
@@ -208,9 +235,13 @@ def test_rest_spmm_refuses_what_the_kernel_does_not_take():
 def test_rest_spmm_kernel_matches_plain(cuda_device, case):
     pack, x, _ = _rest_case(*case)
     pack, x = pack.to(cuda_device), x.to(cuda_device)
+    rp, re, c, v = pack.row_ptr, pack.row_end, pack.cols, pack.vals
     before = rest_spmm.launches
-    out = rest_spmm(pack.row_ptr, pack.cols, pack.vals, x, gather_bf16=case[-1])
+    out = rest_spmm(rp, re, c, v, x, case[7])
     torch.cuda.synchronize()
     assert rest_spmm.launches == before + 1
-    plain = rest_spmm_plain(pack.row_ptr, pack.cols, pack.vals, x, case[-1])
-    np.testing.assert_allclose(out.cpu().numpy(), plain.cpu().numpy(), rtol=1e-5, atol=1e-5)
+    # the same terms of a row as the plain version, summed in another order
+    counts = (re - rp[:-1])[:, None]
+    tol = 2.0 * counts * UNIT_ROUNDOFF * rest_spmm_plain(rp, re, c, v.abs(), x.abs(), case[7])
+    diff = (out - rest_spmm_plain(rp, re, c, v, x, case[7])).abs()
+    assert bool((diff <= tol + 1e-30).all()), float(diff.max())

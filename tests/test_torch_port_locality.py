@@ -258,21 +258,29 @@ def _row_ptr_oracle(p):
     np.testing.assert_array_equal(owner[real.reshape(-1)], flat_rows[real.reshape(-1)])
 
 
-@pytest.mark.parametrize("case", ["square", "empty_blocks", "rectangular", "long_row"])
-@pytest.mark.parametrize("gather_bf16", [False, True])
-def test_rest_packs_match_reference(case, gather_bf16):
+REST_PACK_CASES = ["square", "empty_blocks", "rectangular", "long_row"]
+
+
+def _rest_pack_case(case):
+    """``(adj, row_block, chunk)`` of a rest pack parity case."""
     if case == "square":
-        adj, rb, chunk = _rest_matrix(), 64, 128
-    elif case == "empty_blocks":
+        return _rest_matrix(), 64, 128
+    if case == "empty_blocks":
         adj = sp.csr_matrix((np.ones(4, np.float32), ([0, 1, 500, 500], [3, 4, 5, 6])),
                             shape=(512, 512))
-        rb, chunk = 64, 128
-    elif case == "rectangular":
-        adj, rb, chunk = _rest_matrix(n=200, m=350, seed=4), 64, 128
-    else:  # one row whose entries span several chunks
-        adj = _rest_matrix(n=300, seed=5).tolil()
-        adj[17, :] = np.linspace(0.1, 1.0, 300, dtype=np.float32)
-        adj, rb, chunk = adj.tocsr(), 32, 64
+        return adj, 64, 128
+    if case == "rectangular":
+        return _rest_matrix(n=200, m=350, seed=4), 64, 128
+    # one row whose entries span several chunks
+    adj = _rest_matrix(n=300, seed=5).tolil()
+    adj[17, :] = np.linspace(0.1, 1.0, 300, dtype=np.float32)
+    return adj.tocsr(), 32, 64
+
+
+@pytest.mark.parametrize("case", REST_PACK_CASES)
+@pytest.mark.parametrize("gather_bf16", [False, True])
+def test_rest_packs_match_reference(case, gather_bf16):
+    adj, rb, chunk = _rest_pack_case(case)
     got = build_rest_segmented(adj, row_block=rb, chunk=chunk, gather_bf16=gather_bf16,
                                device=CPU)
     ref = ref_build_rest(adj, row_block=rb, chunk=chunk, interpret=True,
@@ -282,6 +290,35 @@ def test_rest_packs_match_reference(case, gather_bf16):
     assert build_rest_segmented(adj, row_block=rb, chunk=chunk,
                                 device="cuda").default_executor == "pallas"
     _row_ptr_oracle(got)
+
+
+@pytest.mark.parametrize("case", REST_PACK_CASES)
+@pytest.mark.parametrize("gather_bf16", [False, True])
+def test_rest_row_end_stops_at_each_rows_last_real_entry(case, gather_bf16):
+    """``row_end``, which the port derives beside ``row_ptr``, against the
+    reference's layout: one past each row's last real entry (``row_ptr[r]``
+    for a row without one), ``row_ptr[r+1]`` on every row that is not its
+    block's last, and only pad entries between it and ``row_ptr[r+1]``."""
+    adj, rb, chunk = _rest_pack_case(case)
+    got = build_rest_segmented(adj, row_block=rb, chunk=chunk, gather_bf16=gather_bf16,
+                               device=CPU)
+    ref = ref_build_rest(adj, row_block=rb, chunk=chunk, interpret=True,
+                         gather_bf16=gather_bf16)
+    rows, cols, vals = (np.asarray(a).reshape(-1) for a in (ref.rows, ref.cols, ref.vals))
+    grow = (np.repeat(np.asarray(ref.block_of), ref.rows.shape[1]).astype(np.int64) * rb
+            + rows)
+    real = ~((cols == 0) & (vals == 0))
+    row_ptr, row_end = got.row_ptr.numpy(), got.row_end.numpy()
+    assert got.row_end.dtype == torch.int64 and row_end.shape == (row_ptr.size - 1,)
+    want = row_ptr[:-1].copy()
+    pos = np.flatnonzero(real)
+    np.maximum.at(want, grow[pos], pos + 1)
+    np.testing.assert_array_equal(row_end, want)
+    last = np.arange(row_end.size) % rb == rb - 1
+    np.testing.assert_array_equal(row_end[~last], row_ptr[1:][~last])
+    tail = np.concatenate([np.arange(e, p) for e, p in zip(row_end, row_ptr[1:])]).astype(int)
+    assert not real[tail].any()
+    assert torch.equal(got.to(CPU).row_end, got.row_end)  # .to moves it too
 
 
 def _tile_arrays(p):
