@@ -9,7 +9,8 @@ Phases, each printing JSON lines:
               ``ssrg_torch/csrc``, one process per source, all at once.
 2. kernels  — the ELL kernel against its plain PyTorch version on the card:
               the headline hybrid pack (the serving path's own shapes), the
-              power-law pack and ragged packs; times from CUDA events for the
+              power-law pack, the headline pack folded onto an x that fits
+              in L2, and ragged packs; times from CUDA events for the
               kernel, the plain version and one PyTorch library call.
 3. slice    — the serving path at full width: GAMLP (hidden 256, 3 layers,
               K = 3, 40 classes) on a 169,343-node, F = 128 random graph,
@@ -54,6 +55,7 @@ BF16_FLOPS_PER_S = 989e12     # H100 SXM bf16 tensor cores, dense
 UNIT_ROUNDOFF = 2.0 ** -24    # float32
 NUM_NODES, AVG_DEGREE, NUM_FEATURES, NUM_CLASSES = 169_343, 13.7, 128, 40
 BANDED_NEIGHBOURS, BANDED_REACH = 7, 1000
+L2_ROWS = 16_384              # rows of x in the ELL kernel's L2-resident case
 SEED = 0
 KERNELS = ("ell_spmm", "banded_spmm", "rest_spmm")
 REPLACES = {
@@ -221,13 +223,14 @@ def bound(nbytes: int, flops: float, flops_per_s: float) -> dict:
 def ell_case(name: str, cols, vals, x, timed: bool, tail=None) -> dict:
     """Hold ``ell_spmm`` against ``ell_spmm_plain`` on card tensors.
 
-    Tolerance: the kernel (fma in slot order) and the plain version (one
-    batched product) sum the same ``W`` products in a different order, so
-    each is within ``W * u * sum|v * x|`` of the exact sum (u = 2^-24) and
-    they differ by at most twice that, elementwise."""
+    Tolerance: the kernel (only the nonzero slots, fma in slot order) and
+    the plain version (every slot, one batched product) sum the same nonzero
+    products in a different order, so each is within ``W * u * sum|v * x|``
+    of the exact sum (u = 2^-24) and they differ by at most twice that,
+    elementwise."""
     import torch
 
-    from ssrg_torch.ops.ell_spmm import ell_spmm, ell_spmm_plain
+    from ssrg_torch.ops.ell_spmm import TILE, ell_spmm, ell_spmm_plain
 
     out_k = ell_spmm(cols, vals, x)
     out_p = ell_spmm_plain(cols, vals, x)
@@ -238,6 +241,7 @@ def ell_case(name: str, cols, vals, x, timed: bool, tail=None) -> dict:
     rec = {"phase": "kernels", "case": name, "kernel": "ell_spmm",
            "rows": int(cols.shape[0]), "width": int(width), "n": int(x.shape[0]),
            "f": int(x.shape[1]), "vec4": bool(x.shape[1] % 4 == 0 and x.data_ptr() % 16 == 0),
+           "zero_slots": int((vals == 0).sum()), "tile": TILE,
            "max_abs_err": max_abs_err, "tolerance": "2*W*2^-24*sum|v*x| elementwise"}
     if not timed:
         return rec
@@ -261,7 +265,10 @@ def ell_case(name: str, cols, vals, x, timed: bool, tail=None) -> dict:
         "library_max_abs_err": lib_err,
         **bound(nbytes, flops, F32_FLOPS_PER_S),
         "real_slots": int(counts.sum()), "slots": int(cols.numel()),
+        # the neighbour rows the kernel reads, one per real slot, from L2 or memory
+        "gather_bytes": int(counts.sum()) * x.shape[1] * 4,
     })
+    rec["gather_gb_per_s"] = rec["gather_bytes"] / rec["ms"] / 1e6
     if tail is not None:
         acc = torch.zeros((tail.n_rows, x.shape[1]), dtype=torch.float32, device=x.device)
         rec["tail_nnz"] = int((tail.val != 0).sum())
@@ -280,16 +287,41 @@ def phase_kernels(headline, powerlaw) -> dict:
         rec = ell_case(name, hyb.ell.cols, hyb.ell.vals, x, timed=True, tail=hyb.tail)
         emit(rec)
         recs[name] = rec
+    # the headline pack with every column taken modulo L2_ROWS: x is 8.4 MB and
+    # stays in L2, so this measures the gather rate when nothing misses it
+    hyb, x = headline
+    emit(ell_case("headline_l2_resident", torch.remainder(hyb.ell.cols, L2_ROWS),
+                  hyb.ell.vals, x[:L2_ROWS], timed=True))
     gen = torch.Generator().manual_seed(SEED)
-    ragged = [  # (name, rows, n, width, f, misalign)
-        ("f50_scalar", 1003, 777, 7, 50, False),
-        ("width1", 1003, 512, 1, 128, False),
-        ("width40_f300", 2001, 1500, 40, 300, False),
-        ("f48_misaligned", 999, 600, 9, 48, True),
+    ragged = [  # (name, rows, n, width, f, misalign, slots): slots "holes" zeroes a
+        # third of the slots and pads each row's end, "all_zero" every slot,
+        # "full" none
+        ("f50_scalar", 1003, 777, 7, 50, False, None),
+        ("width1", 1003, 512, 1, 128, False, None),
+        ("width40_f300", 2001, 1500, 40, 300, False, None),
+        ("f48_misaligned", 999, 600, 9, 48, True, None),
+        ("holes_w24_f128", 2001, 1500, 24, 128, False, "holes"),
+        ("all_zero", 513, 300, 16, 128, False, "all_zero"),
+        ("full_w64", 1003, 1500, 64, 128, False, "full"),
+        ("f4", 1003, 700, 5, 4, False, "holes"),
+        ("f16", 1003, 700, 12, 16, False, "holes"),
+        ("f20", 1003, 700, 12, 20, False, "holes"),
+        ("f130_w33", 1003, 700, 33, 130, False, "holes"),
+        ("f300_holes", 1003, 700, 20, 300, False, "holes"),
+        ("f128_misaligned_holes", 999, 600, 24, 128, True, "holes"),
     ]
-    for name, rows, n, width, f, misalign in ragged:
+    for name, rows, n, width, f, misalign, slots in ragged:
         cols = torch.randint(0, n, (rows, width), generator=gen, dtype=torch.int32)
         vals = torch.randn(rows, width, generator=gen)
+        if slots == "full":
+            vals = 0.1 + 0.9 * torch.rand(rows, width, generator=gen)
+        elif slots == "all_zero":
+            vals.zero_()
+        elif slots == "holes":
+            vals[torch.rand(rows, width, generator=gen) < 1 / 3] = 0.0
+            ends = torch.randint(0, width + 1, (rows, 1), generator=gen)
+            pad = torch.arange(width)[None, :] >= ends
+            cols[pad], vals[pad] = 0, 0.0
         empty = torch.rand(rows, generator=gen) < 0.1   # rows with no neighbour
         cols[empty], vals[empty] = 0, 0.0
         x_host = torch.randn(n, f, generator=gen)

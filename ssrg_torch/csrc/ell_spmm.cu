@@ -3,93 +3,155 @@
 //
 // Replaces ssrg_tpu/ops/pallas_spmm.py::_spmm_kernel, the Pallas TPU kernel that
 // gathers the neighbour rows of 8-row blocks by double-buffered DMA and reduces
-// them on the vector unit. Like it, this kernel computes every slot of the pack,
-// padding slots (column 0, weight 0) included; the COO tail of a hybrid pack is
-// added outside.
+// them on the vector unit, padding slots (column 0, weight 0) included. This
+// kernel adds only the nonzero slots: for finite x the products are the same and
+// only the order of the f32 sum differs. One difference by design: an Inf or NaN
+// of x under a zero-weight slot turns the reference's row into NaN, not this
+// kernel's. The COO tail of a hybrid pack is added outside.
 //
-// What bounds it: the gather. Each slot reads one row of x (F floats) from a
-// data-dependent address. At the headline graph (N = 169,343, width 24, F = 128)
-// that is about 1.27 GB of neighbour rows per hop for the real slots and about
-// 2.08 GB with the padding slots, against about 0.21 GB of compulsory traffic
-// (the pack, x and out each moved once). x is 86.7 MB, larger than the 50 MB L2,
-// so part of the gather goes to device memory.
+// What bounds it: the gather. At the headline graph (N = 169,343, width 24,
+// F = 128) the compulsory traffic (the pack, x and out each moved once) is about
+// 0.21 GB, 0.0615 ms at the H100 SXM data sheet's 3.35 TB/s, but each of the
+// 2,486,502 real slots reads one 512-byte row of x from a data-dependent
+// address: 1.27 GB of gathers a hop, from an x of 86.7 MB that does not fit in
+// the 50 MB L2. 39 % of the headline pack's slots and 73 % of the power-law
+// pack's are padding. Even with x held in L2 the gathers cross from L2 to the
+// SMs: that takes about 0.16 ms on the headline pack (its columns folded onto
+// an 8.4 MB x; chip_smoke.py, PERF.md), the floor below the bound.
 //
-// What the simple design does about it: one warp per output row, lanes across F,
-// so every neighbour-row read is one coalesced 512-byte transaction (16 bytes a
-// lane as float4 when F % 4 == 0 and the pointers are 16-byte aligned; 4 bytes a
-// lane otherwise). The (col, val) pairs of a row are loaded once per warp, lane j
-// holding slot j, and broadcast by shuffle. Sums stay in f32 registers and every
-// output row is written once: no atomics, and the result does not depend on the
-// schedule. F wider than 128 floats is walked in 128-float tiles. Eight warps a
-// block keep many independent gathers in flight on each SM. Skipping padding
-// slots, staging x in shared memory or L2-sized tiles, and cp.async/TMA are left
-// for later work.
+// What the design does about it:
+// - Feature tiles of kTile floats, walked tile-major within the one launch: the
+//   tile is the slowest index of the grid (blockIdx.y), so the card runs every
+//   row of tile 0 before tile 1, and the x the warps in flight gather from is
+//   N * kTile * 4 bytes (43.4 MB at kTile = 64 against 86.7 MB), which L2 holds
+//   in large part. The price: the pack is read once per tile, and each row's
+//   listing of its slots is done once per tile.
+// - A row group of kG = kTile / 4 lanes owns one output row of the tile, each
+//   lane 4 features (one float4 when F % 4 == 0 and x and out are 16-byte
+//   aligned, else 4 masked scalars); a warp serves 32 / kG rows at once.
+// - The group loads its row's (col, val) slots, kG at a time, with evict-first
+//   loads (the pack must not push x out of L2). A warp vote, masked to the
+//   group, marks the nonzero slots, and each nonzero goes, in slot order, to the
+//   group's list in shared memory (32 slots at a time; widths above 32 take
+//   several votes and lists). Padding slots cost no gather and no FMA.
+// - The group walks its list kBatch entries at a time: every lane requests its
+//   kBatch neighbour rows before it adds any. The warp runs as long as its
+//   longest row; shorter rows' lanes sit out with masked loads. Each row's sum
+//   is in slot order, so it depends only on the data, not on the schedule.
+// - Each output row is written once per tile with streaming stores (no atomics;
+//   rows without a nonzero slot, padding rows included, as zeros), so out, which
+//   nothing reads again in this launch, does not push x out of L2 either.
+// The constants below were chosen by timing variants of this source on the
+// H100 (tools/ell_variants.py builds it with other values of kTile, kBatch and
+// kWarps and times each; PERF.md): 64-float tiles (32 lists every row four
+// times, 128 gathers from all of x), 4-warp blocks, 2 gathers a lane.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kWarpsPerBlock = 8;
-constexpr int kTile = 128;  // floats of a row that one warp covers per pass
-constexpr unsigned kFullMask = 0xffffffffu;
+constexpr int kTile = 64;      // floats of a feature tile
+constexpr int kWarps = 4;      // warps of a thread block
+constexpr int kThreads = 32 * kWarps;
+constexpr int kChunk = 32;     // slots of a row listed before they are gathered
+constexpr int kBatch = 2;      // neighbour rows a lane requests before adding any
+constexpr unsigned kFull = 0xffffffffu;
+static_assert(kTile == 32 || kTile == 64 || kTile == 128,
+              "a row group is kTile / 4 lanes: 8, 16 or 32, within one warp");
 
-template <bool kVec4>
-__global__ void __launch_bounds__(kWarpsPerBlock * 32)
+// The lane's 4 features of neighbour row `xr` (a pointer to x[col, f0]): features
+// 4 * gl + q (vector) or gl + kG * q (scalar) of the nf left in the tile.
+template <int kG, bool kVec>
+__device__ __forceinline__ void load_x(const float* __restrict__ xr, int gl, int nf,
+                                       bool valid, float (&g)[4]) {
+  if (kVec) {
+    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (valid && 4 * gl < nf) v = __ldg(reinterpret_cast<const float4*>(xr) + gl);
+    g[0] = v.x; g[1] = v.y; g[2] = v.z; g[3] = v.w;
+  } else {
+#pragma unroll
+    for (int q = 0; q < 4; ++q) g[q] = (valid && gl + kG * q < nf) ? __ldg(xr + gl + kG * q) : 0.f;
+  }
+}
+
+template <bool kVec>
+__global__ void __launch_bounds__(kThreads)
 ell_spmm_kernel(const int32_t* __restrict__ cols, const float* __restrict__ vals,
-                const float* __restrict__ x, float* __restrict__ out,
-                int64_t n_rows, int width, int f) {
+                const float* __restrict__ x, float* __restrict__ out, int64_t n_rows,
+                int width, int f, int tiles) {
+  constexpr int kG = kTile / 4;  // lanes of a row group
+  constexpr int kR = 32 / kG;    // rows of a warp
+  // a row group's nonzeros; one entry more than a chunk keeps the groups'
+  // reads of the same position on different banks
+  __shared__ int2 list_s[kWarps][kR][kChunk + 1];
+
   const int lane = threadIdx.x & 31;
-  const int64_t row =
-      static_cast<int64_t>(blockIdx.x) * kWarpsPerBlock + (threadIdx.x >> 5);
-  if (row >= n_rows) return;  // uniform across the warp
+  const int warp = threadIdx.x >> 5;
+  const int rg = lane / kG;
+  const int gl = lane % kG;
+  const unsigned group_bits = kG == 32 ? kFull : ((1u << (kG & 31)) - 1u) << (rg * kG);
+  const int64_t row0 = (static_cast<int64_t>(blockIdx.x) * kWarps + warp) * kR;
+  if (row0 >= n_rows) return;  // uniform across the warp
+  const int64_t row = row0 + rg;
+  const bool live = row < n_rows;  // a dead group votes no slot and writes nothing
   const int32_t* row_cols = cols + row * width;
   const float* row_vals = vals + row * width;
-  float* out_row = out + row * static_cast<int64_t>(f);
+  int2* list = list_s[warp][rg];
 
-  for (int f0 = 0; f0 < f; f0 += kTile) {
-    float acc0 = 0.f, acc1 = 0.f, acc2 = 0.f, acc3 = 0.f;
-    for (int w0 = 0; w0 < width; w0 += 32) {
-      const int n = min(32, width - w0);
-      int32_t my_col = 0;
-      float my_val = 0.f;
-      if (lane < n) {
-        my_col = row_cols[w0 + lane];
-        my_val = row_vals[w0 + lane];
+  for (int t = blockIdx.y; t < tiles; t += gridDim.y) {
+    const int f0 = t * kTile;
+    const int nf = min(kTile, f - f0);
+    float acc[4] = {0.f, 0.f, 0.f, 0.f};
+    for (int c0 = 0; c0 < width; c0 += kChunk) {
+      // list the nonzero slots of [c0, c0 + kChunk) in slot order, kG at a time
+      int cnt = 0;
+      const int c1 = min(c0 + kChunk, width);
+      for (int w0 = c0; w0 < c1; w0 += kG) {
+        const int w = w0 + gl;
+        int32_t c = 0;
+        float v = 0.f;
+        if (live && w < c1) {
+          c = __ldcs(row_cols + w);
+          v = __ldcs(row_vals + w);
+        }
+        const unsigned m = __ballot_sync(kFull, v != 0.f) & group_bits;  // +0, -0 are zero
+        if (v != 0.f) list[cnt + __popc(m & ((1u << lane) - 1u))] = make_int2(c, __float_as_int(v));
+        cnt += __popc(m);
       }
-#pragma unroll 4
-      for (int j = 0; j < n; ++j) {
-        const int64_t c = __shfl_sync(kFullMask, my_col, j);
-        const float v = __shfl_sync(kFullMask, my_val, j);
-        const float* xr = x + c * f + f0;
-        if (kVec4) {
-          const int fi = lane * 4;
-          if (f0 + fi < f) {
-            const float4 xv = __ldg(reinterpret_cast<const float4*>(xr + fi));
-            acc0 = fmaf(v, xv.x, acc0);
-            acc1 = fmaf(v, xv.y, acc1);
-            acc2 = fmaf(v, xv.z, acc2);
-            acc3 = fmaf(v, xv.w, acc3);
-          }
-        } else {
-          if (f0 + lane < f) acc0 = fmaf(v, __ldg(xr + lane), acc0);
-          if (f0 + lane + 32 < f) acc1 = fmaf(v, __ldg(xr + lane + 32), acc1);
-          if (f0 + lane + 64 < f) acc2 = fmaf(v, __ldg(xr + lane + 64), acc2);
-          if (f0 + lane + 96 < f) acc3 = fmaf(v, __ldg(xr + lane + 96), acc3);
+      __syncwarp();
+      // every group walks its own list; the warp runs as long as the longest
+      const int most = __reduce_max_sync(kFull, cnt);
+      for (int k0 = 0; k0 < most; k0 += kBatch) {
+        float vj[kBatch];
+        float g[kBatch][4];
+#pragma unroll
+        for (int j = 0; j < kBatch; ++j) {
+          const bool valid = k0 + j < cnt;
+          const int2 e = valid ? list[k0 + j] : make_int2(0, 0);
+          vj[j] = __int_as_float(e.y);  // 0 for an invalid entry, whose g is 0 too
+          load_x<kG, kVec>(x + static_cast<int64_t>(e.x) * f + f0, gl, nf, valid, g[j]);
+        }
+#pragma unroll
+        for (int j = 0; j < kBatch; ++j) {
+#pragma unroll
+          for (int q = 0; q < 4; ++q) acc[q] = fmaf(vj[j], g[j][q], acc[q]);
         }
       }
+      __syncwarp();  // the lists are refilled by the next chunk
     }
-    if (kVec4) {
-      const int fi = lane * 4;
-      if (f0 + fi < f) {
-        *reinterpret_cast<float4*>(out_row + f0 + fi) =
-            make_float4(acc0, acc1, acc2, acc3);
+    if (live) {
+      float* out_row = out + row * static_cast<int64_t>(f) + f0;
+      if (kVec) {
+        if (4 * gl < nf) {
+          __stcs(reinterpret_cast<float4*>(out_row) + gl,
+                 make_float4(acc[0], acc[1], acc[2], acc[3]));
+        }
+      } else {
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+          if (gl + kG * q < nf) __stcs(out_row + gl + kG * q, acc[q]);
       }
-    } else {
-      if (f0 + lane < f) out_row[f0 + lane] = acc0;
-      if (f0 + lane + 32 < f) out_row[f0 + lane + 32] = acc1;
-      if (f0 + lane + 64 < f) out_row[f0 + lane + 64] = acc2;
-      if (f0 + lane + 96 < f) out_row[f0 + lane + 96] = acc3;
     }
   }
 }
@@ -105,14 +167,18 @@ extern "C" int ell_spmm_f32(const int32_t* cols, const float* vals, const float*
                             float* out, int64_t n_rows, int width, int f, int vec4,
                             cudaStream_t stream) {
   if (n_rows <= 0 || width <= 0 || f <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  const int64_t blocks = (n_rows + kWarpsPerBlock - 1) / kWarpsPerBlock;
+  const int64_t rows_a_block = kWarps * (32 / (kTile / 4));
+  const int64_t blocks = (n_rows + rows_a_block - 1) / rows_a_block;
   if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidConfiguration);
-  const dim3 grid(static_cast<unsigned>(blocks));
-  const dim3 block(kWarpsPerBlock * 32);
+  const int tiles = (f + kTile - 1) / kTile;
+  // tile-major: blockIdx.y is the tile; past 65,535 tiles a block walks several
+  const dim3 grid(static_cast<unsigned>(blocks), static_cast<unsigned>(tiles < 65535 ? tiles : 65535));
   if (vec4) {
-    ell_spmm_kernel<true><<<grid, block, 0, stream>>>(cols, vals, x, out, n_rows, width, f);
+    ell_spmm_kernel<true><<<grid, kThreads, 0, stream>>>(cols, vals, x, out, n_rows, width, f,
+                                                         tiles);
   } else {
-    ell_spmm_kernel<false><<<grid, block, 0, stream>>>(cols, vals, x, out, n_rows, width, f);
+    ell_spmm_kernel<false><<<grid, kThreads, 0, stream>>>(cols, vals, x, out, n_rows, width, f,
+                                                          tiles);
   }
   return static_cast<int>(cudaGetLastError());
 }

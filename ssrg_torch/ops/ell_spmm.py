@@ -8,9 +8,13 @@ port of ``ssrg_tpu/ops/pallas_spmm.py::_spmm_kernel`` and carries both
 picks above 8192 nodes) and ``PallasELLAdj.spmm``.
 
 For CUDA tensors the wrapper launches ``csrc/ell_spmm.cu``, which
-:mod:`ssrg_torch.ops._nvcc` builds at first use. For CPU tensors it runs
-:func:`ell_spmm_plain`. There is no other path: a CUDA tensor launches the
-kernel or raises.
+:mod:`ssrg_torch.ops._nvcc` builds at first use. The kernel adds only the
+nonzero slots (the padding slots, column 0 and weight 0, cost nothing) and
+walks the features in tiles of :data:`TILE` floats, every row of one tile
+before the next, so that most of the x it gathers from stays in L2. For CPU
+tensors the wrapper runs :func:`ell_spmm_plain`, which sums every slot as the
+reference does. There is no other path: a CUDA tensor launches the kernel or
+raises.
 """
 
 from __future__ import annotations
@@ -22,6 +26,8 @@ import torch
 from ssrg_torch.ops import _nvcc
 
 NAME = "ell_spmm"
+# the kernel's feature tile width, kTile in csrc/ell_spmm.cu
+TILE = 64
 
 # bytes of gathered neighbour rows the plain version materializes at once
 _PLAIN_CHUNK_BYTES = 1 << 26

@@ -1,7 +1,8 @@
-"""The PyTorch port stands alone: no file of ``ssrg_torch`` and no
-``chip_smoke.py`` imports jax, flax, optax or ``ssrg_tpu``; importing the
-port pulls none of them in; and ``chip_smoke.py`` fails without a CUDA
-card or without the rest of the repository."""
+"""The PyTorch port stands alone: no file of ``ssrg_torch``, no
+``chip_smoke.py`` and no ``tools/ell_variants.py`` imports jax, flax, optax
+or ``ssrg_tpu``; importing the port pulls none of them in; and both scripts
+fail without a CUDA card, ``chip_smoke.py`` also without the rest of the
+repository."""
 
 import ast
 import os
@@ -15,7 +16,8 @@ import torch
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "ssrg_tpu")
-PORT_FILES = sorted((ROOT / "ssrg_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+PACKAGE_FILES = sorted((ROOT / "ssrg_torch").rglob("*.py"))
+PORT_FILES = PACKAGE_FILES + [ROOT / "chip_smoke.py", ROOT / "tools" / "ell_variants.py"]
 
 
 def _imported_roots(path: pathlib.Path):
@@ -46,7 +48,7 @@ def _run(args, cwd):
 def test_importing_the_port_loads_no_jax():
     modules = sorted(
         ".".join(p.relative_to(ROOT).with_suffix("").parts).removesuffix(".__init__")
-        for p in PORT_FILES if p.name != "chip_smoke.py"
+        for p in PACKAGE_FILES
     )
     code = ("import importlib, sys\n"
             f"for m in {modules!r}: importlib.import_module(m)\n"
@@ -66,6 +68,12 @@ def test_chip_smoke_fails_without_a_card(no_cuda):
     proc = _run(["chip_smoke.py"], ROOT)
     assert proc.returncode != 0
     assert '"ok": true' not in proc.stdout
+
+
+def test_ell_variants_fails_without_a_card(no_cuda):
+    proc = _run(["tools/ell_variants.py"], ROOT)
+    assert proc.returncode == 2, proc.stderr[-2000:]
+    assert not proc.stdout
 
 
 def test_chip_smoke_fails_without_the_repository(tmp_path):

@@ -9,12 +9,15 @@ tests also run where only the port is installed:
     python -m pytest tests/test_torch_port_kernels.py -m cuda --noconftest
 """
 
+import re
+
 import numpy as np
 import pytest
 import scipy.sparse as sp
 import torch
 
-from ssrg_torch.ops import sparse
+from ssrg_torch.ops import _nvcc, sparse
+from ssrg_torch.ops import ell_spmm as ell_spmm_module
 from ssrg_torch.ops.banded_spmm import banded_spmm, banded_spmm_plain
 from ssrg_torch.ops.ell_spmm import ell_spmm, ell_spmm_plain
 from ssrg_torch.ops.pallas_rest import build_rest_segmented
@@ -24,12 +27,25 @@ from ssrg_torch.ops.rest_spmm import rest_spmm, rest_spmm_plain
 # of a row in another order differ by at most 2 * c * u * sum|term|
 UNIT_ROUNDOFF = 2.0 ** -24
 
-ELL_CASES = [  # (rows, n, width, f, empty_fraction)
+ELL_CASES = [  # (rows, n, width, f, empty_fraction[, kind])
     (37, 50, 1, 128, 0.0),
     (1003, 777, 7, 50, 0.1),
     (61, 40, 40, 300, 0.2),
     (13, 20, 3, 48, 0.5),
+    (64, 300, 24, 128, 0.1, "holes"),      # zero slots inside rows and padded row ends
+    (40, 50, 16, 32, 0.0, "all_zero"),     # no nonzero slot at all
+    (50, 400, 64, 128, 0.0, "full"),       # every slot nonzero, two votes a row
+    (100, 80, 5, 4, 0.1, "holes"),         # F = 4, less than one tile
+    (100, 80, 12, 16, 0.1, "holes"),       # F = 16
+    (100, 80, 12, 20, 0.1, "holes"),       # F = 20, a ragged tile
+    (90, 200, 33, 130, 0.1, "holes"),      # F = 130: scalar loads, several tiles
+    (70, 120, 20, 300, 0.1, "holes"),      # F = 300, a ragged last tile
+    (99, 60, 9, 48, 0.1, "misaligned"),    # x 4 bytes off 16-byte alignment
 ]
+
+
+def _ell_id(case):
+    return "r{}_n{}_w{}_f{}".format(*case[:4]) + (f"_{case[5]}" if len(case) > 5 else "")
 
 
 @pytest.fixture
@@ -39,10 +55,22 @@ def cuda_device():
     return torch.device("cuda")
 
 
-def _ell_case(rows, n, width, f, empty, seed=0):
+def _ell_case(rows, n, width, f, empty, kind=None, seed=0):
+    """``kind="holes"`` zeroes a third of the slots and pads each row's end
+    with column 0 and weight 0, as the packer does; ``"all_zero"`` zeroes
+    every slot; ``"full"`` keeps every slot nonzero; ``"misaligned"`` is
+    ``"holes"`` with an x that :func:`_ell_tensors` places off alignment."""
     rng = np.random.default_rng(seed)
     cols = rng.integers(0, n, (rows, width)).astype(np.int32)
     vals = rng.normal(size=(rows, width)).astype(np.float32)
+    if kind == "full":
+        vals = rng.uniform(0.1, 1.0, size=(rows, width)).astype(np.float32)
+    elif kind == "all_zero":
+        vals[:] = 0.0
+    elif kind in ("holes", "misaligned"):
+        vals[rng.uniform(size=(rows, width)) < 1 / 3] = 0.0
+        pad = np.arange(width)[None, :] >= rng.integers(0, width + 1, rows)[:, None]
+        cols[pad], vals[pad] = 0, 0.0
     drop = rng.uniform(size=rows) < empty
     cols[drop], vals[drop] = 0, 0.0
     x = rng.normal(size=(n, f)).astype(np.float32)
@@ -51,11 +79,24 @@ def _ell_case(rows, n, width, f, empty, seed=0):
     return cols, vals, x, dense @ x.astype(np.float64)
 
 
-@pytest.mark.parametrize("case", ELL_CASES, ids=lambda c: "r{}_n{}_w{}_f{}".format(*c))
+def _ell_tensors(case, device):
+    """``(cols, vals, x)`` of an ``ELL_CASES`` entry on ``device``; a
+    ``"misaligned"`` case's x is contiguous but 4 bytes off 16-byte
+    alignment."""
+    cols, vals, x, _ = _ell_case(*case)
+    c, v = torch.from_numpy(cols).to(device), torch.from_numpy(vals).to(device)
+    xx = torch.from_numpy(x).to(device)
+    if case[5:] == ("misaligned",):
+        xx = torch.empty(x.size + 1, device=device)[1:].view(x.shape).copy_(xx)
+        assert xx.data_ptr() % 16 != 0
+    return c, v, xx
+
+
+@pytest.mark.parametrize("case", ELL_CASES, ids=_ell_id)
 def test_ell_spmm_plain_ragged(case):
-    cols, vals, x, expected = _ell_case(*case)
+    expected = _ell_case(*case)[3]
     before = ell_spmm.launches
-    out = ell_spmm(torch.from_numpy(cols), torch.from_numpy(vals), torch.from_numpy(x))
+    out = ell_spmm(*_ell_tensors(case, "cpu"))
     assert ell_spmm.launches == before  # CPU tensors take the plain version
     np.testing.assert_allclose(out.numpy(), expected, rtol=3e-5, atol=3e-5)
 
@@ -77,17 +118,30 @@ def test_ell_spmm_refuses_what_the_kernel_does_not_take():
         sparse.build_ell(sp.random(20, 20, 0.2, format="csr", random_state=0)).spmm(xx[:10])
 
 
+def _ell_tolerance(c, v, xx):
+    # the kernel adds only the nonzero slots, the plain version every slot, in
+    # another order: each within W * u * sum|v * x| of the exact sum
+    width = c.shape[1]
+    return 2.0 * width * UNIT_ROUNDOFF * ell_spmm_plain(c, v.abs(), xx.abs()) + 1e-30
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", ELL_CASES, ids=lambda c: "r{}_n{}_w{}_f{}".format(*c))
+@pytest.mark.parametrize("case", ELL_CASES, ids=_ell_id)
 def test_ell_spmm_kernel_matches_plain(cuda_device, case):
-    cols, vals, x, _ = _ell_case(*case)
-    c, v, xx = (torch.from_numpy(a).to(cuda_device) for a in (cols, vals, x))
+    c, v, xx = _ell_tensors(case, cuda_device)
     before = ell_spmm.launches
     out = ell_spmm(c, v, xx)
     torch.cuda.synchronize()
     assert ell_spmm.launches == before + 1
-    np.testing.assert_allclose(out.cpu().numpy(), ell_spmm_plain(c, v, xx).cpu().numpy(),
-                               rtol=1e-5, atol=1e-5)
+    diff = (out - ell_spmm_plain(c, v, xx)).abs()
+    assert bool((diff <= _ell_tolerance(c, v, xx)).all()), float(diff.max())
+
+
+def test_ell_tile_is_the_kernel_sources():
+    # ell_spmm.TILE reports the kernel's feature tile; the source fixes it
+    with open(_nvcc.source("ell_spmm")) as f:
+        tiles = re.findall(r"constexpr int kTile = (\d+);", f.read())
+    assert tiles == [str(ell_spmm_module.TILE)]
 
 
 # --- banded SpMM -------------------------------------------------------------
