@@ -5,13 +5,33 @@ module of the same path there and is held against it by the
 ``tests/test_torch_port_*.py`` parity tests. This package imports torch,
 numpy and scipy only — never jax, flax, optax or ``ssrg_tpu``.
 
-The serving path is ported: normalization, hybrid ELL+COO packing, K-hop
-propagation through the hand-written CUDA ELL SpMM kernel
-(``csrc/ell_spmm.cu``), the message operators, the heads, the model zoo's
-precompute models and :class:`ssrg_torch.serve.Predictor`. Entry points run
-on ``cuda`` unless the caller passes ``device="cpu"``.
+Ported: normalization, hybrid ELL+COO packing, K-hop propagation through
+the hand-written CUDA ELL SpMM kernel (``csrc/ell_spmm.cu``), the locality
+engines on the banded and rest kernels, the message operators, the heads,
+the model zoo's precompute models and naive GCN, training
+(:class:`ssrg_torch.train.NodeClassification`, with the ELL kernel under
+autograd for the GCN), checkpoints and :class:`ssrg_torch.serve.Predictor`.
+Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
 """
 
 __version__ = "0.1.0"
 
-from ssrg_torch.configs.config import ModelConfig, TrainingConfig  # noqa: F401
+from ssrg_torch.configs.config import (  # noqa: F401
+    ModelConfig,
+    TrainingConfig,
+    WaveletConfig,
+)
+
+
+def load_model(*args, **kwargs):
+    """Re-export of :func:`ssrg_torch.models.zoo.load_model`."""
+    from ssrg_torch.models.zoo import load_model as _load_model
+
+    return _load_model(*args, **kwargs)
+
+
+def Predictor(*args, **kwargs):
+    """Re-export of :class:`ssrg_torch.serve.Predictor`."""
+    from ssrg_torch.serve import Predictor as _Predictor
+
+    return _Predictor(*args, **kwargs)

@@ -1,11 +1,20 @@
-"""Carry parameters of the reference's flax modules over to the port.
+"""Carry parameters between the reference's flax modules and the port.
 
 ``params_from_jax`` turns a flax parameter tree (nested mappings of
-arrays, e.g. ``jax.tree_util.tree_map(np.asarray, params)``) into a state
-dict of the port's modules, whose submodules carry the flax names
-(``msg_op/jk``, ``head/fc_0``, ``head/prelu_0``, ``head/fc_out``, ...).
-A ``Dense`` ``kernel`` ``[in, out]`` becomes the Linear ``weight``
-``[out, in]``; ``bias``, ``slope`` and ``hop_weight`` carry over as they are.
+arrays, e.g. ``jax.tree_util.tree_map(np.asarray, params)``) or a flax
+variables dict (``{"params": ..., "batch_stats": ...}``) into a state dict
+of the port's modules, whose submodules carry the flax names (``msg_op/jk``,
+``head/fc_0``, ``head/bn_0``, ``head/prelu_0``, ``head/fc_out``, ...):
+
+- a ``Dense`` ``kernel`` ``[in, out]`` becomes the Linear ``weight``
+  ``[out, in]``;
+- a ``BatchNorm``'s ``scale`` becomes ``weight``, and its statistics
+  ``mean``/``var`` (in ``batch_stats``) ``running_mean``/``running_var``;
+- ``bias``, ``slope``, ``hop_weight``, ``hop_node_weight`` and
+  ``subgraph_weight`` carry over as they are.
+
+``params_to_jax`` is the inverse: it turns a state dict into the variables
+dict, so that the port writes checkpoints the reference reads.
 """
 
 from __future__ import annotations
@@ -16,30 +25,62 @@ from typing import Dict
 import numpy as np
 import torch
 
-_VERBATIM = ("bias", "slope", "hop_weight")
+_VERBATIM = ("bias", "slope", "hop_weight", "hop_node_weight", "subgraph_weight")
+_STATS = {"mean": "running_mean", "var": "running_var"}
+
+
+def _walk(node: Mapping, prefix: str, out: Dict[str, torch.Tensor], stats: bool) -> None:
+    for name, value in node.items():
+        if isinstance(value, Mapping):
+            _walk(value, f"{prefix}{name}.", out, stats)
+            continue
+        arr = np.asarray(value, dtype=np.float32)
+        if stats and name in _STATS:
+            out[f"{prefix}{_STATS[name]}"] = torch.tensor(arr)
+        elif stats:
+            raise KeyError(f"no port mapping for flax batch statistic {prefix}{name}")
+        elif name == "kernel":
+            if arr.ndim != 2:
+                raise ValueError(f"{prefix}{name}: expected a 2-D Dense kernel")
+            out[f"{prefix}weight"] = torch.tensor(arr.T)
+        elif name == "scale":
+            out[f"{prefix}weight"] = torch.tensor(arr)
+        elif name in _VERBATIM:
+            out[f"{prefix}{name}"] = torch.tensor(arr)
+        else:
+            raise KeyError(f"no port mapping for flax parameter {prefix}{name}")
 
 
 def params_from_jax(tree: Mapping) -> Dict[str, torch.Tensor]:
-    """Flax parameter tree -> state dict (float32 tensors on the CPU). A
-    top-level ``{"params": ...}`` variables dict is unwrapped."""
-    if set(tree) == {"params"}:
-        tree = tree["params"]
+    """Flax parameter tree or variables dict -> state dict (float32 tensors
+    on the CPU)."""
     out: Dict[str, torch.Tensor] = {}
-
-    def walk(node: Mapping, prefix: str) -> None:
-        for name, value in node.items():
-            if isinstance(value, Mapping):
-                walk(value, f"{prefix}{name}.")
-                continue
-            arr = np.asarray(value, dtype=np.float32)
-            if name == "kernel":
-                if arr.ndim != 2:
-                    raise ValueError(f"{prefix}{name}: expected a 2-D Dense kernel")
-                out[f"{prefix}weight"] = torch.tensor(arr.T)
-            elif name in _VERBATIM:
-                out[f"{prefix}{name}"] = torch.tensor(arr)
-            else:
-                raise KeyError(f"no port mapping for flax parameter {prefix}{name}")
-
-    walk(tree, "")
+    if "params" in tree and set(tree) <= {"params", "batch_stats"}:
+        _walk(tree["params"], "", out, stats=False)
+        _walk(tree.get("batch_stats", {}), "", out, stats=True)
+    else:
+        _walk(tree, "", out, stats=False)
     return out
+
+
+def params_to_jax(state_dict: Mapping[str, torch.Tensor]) -> dict:
+    """State dict -> flax variables dict ``{"params": tree}``, with
+    ``"batch_stats"`` when the model holds BatchNorm statistics; leaves are
+    float32 numpy arrays. A 2-D ``weight`` is a Dense kernel (transposed), a
+    1-D one a BatchNorm ``scale``."""
+    variables: dict = {"params": {}}
+    for key, value in state_dict.items():
+        *path, name = key.split(".")
+        arr = value.detach().cpu().to(torch.float32).numpy()
+        collection = "params"
+        if name in ("running_mean", "running_var"):
+            collection, name = "batch_stats", name.removeprefix("running_")
+        elif name == "weight":
+            name, arr = ("kernel", arr.T) if arr.ndim == 2 else ("scale", arr)
+        elif name not in _VERBATIM:
+            raise KeyError(f"no flax mapping for state-dict entry {key}")
+        node = variables.setdefault(collection, {})
+        for part in path:
+            node = node.setdefault(part, {})
+        node[name] = np.array(arr, order="C")
+    return variables

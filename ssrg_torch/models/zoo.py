@@ -9,10 +9,12 @@ models as {graph op, message op, head} compositions.
 | gbp   | sym      | simple_weighted (alpha decay) | MLP    |
 | gamlp | sym      | learnable_weighted ("jk")     | MLP    |
 | nafs  | sym      | over_smooth_dis_weighted      | LogReg |
+| gcn   | naive sym (in the head) | —                      | 2-layer GCN |
+| clean_train | — (featureless)   | —                      | FeatureAugment2MLP |
 
-The other models of the reference (gcn, clean_train, wavelet, magnet,
-two_dir, two_order) and graph ops other than ``sym`` raise
-``NotImplementedError`` naming the ROADMAP.md item that ports them.
+The other models of the reference (wavelet, magnet, two_dir, two_order)
+and graph ops other than ``sym`` raise ``NotImplementedError`` naming the
+ROADMAP.md item that ports them.
 """
 
 from __future__ import annotations
@@ -26,7 +28,8 @@ from torch import nn
 
 from ssrg_torch.configs.config import ModelConfig
 from ssrg_torch.models.heads import (
-    TRAINING_SLICE,
+    FeatureAugment2MLP,
+    Layer2GraphConvolution,
     LogisticRegression,
     MultiLayerPerceptron,
 )
@@ -42,9 +45,8 @@ SPECTRAL_SLICE = "ROADMAP.md queue, spectral / complex models"
 GRAPH_OPS: Dict[str, Callable[[sp.spmatrix, ModelConfig], Any]] = {
     "sym": lambda adj, cfg: normalize.sym_norm(adj, cfg.r),
 }
-# graph_op None is the featureless path of clean_train
 _UNPORTED_GRAPH_OPS = {
-    None: TRAINING_SLICE, "ppr": SPECTRAL_SLICE, "magnetic": SPECTRAL_SLICE,
+    "ppr": SPECTRAL_SLICE, "magnetic": SPECTRAL_SLICE,
     "magnetic_ppr": SPECTRAL_SLICE, "two_dir": SPECTRAL_SLICE,
     "fast_ppr": SPECTRAL_SLICE, "two_order": SPECTRAL_SLICE,
 }
@@ -54,7 +56,8 @@ class PrecomputeModel(nn.Module):
     """The trainable part of a precompute model: an optional in-forward
     message op, then the head. ``inputs`` is ``[n, D]`` when aggregation
     happened at precompute time, or the hop stack ``[K+1, n, F]`` when the
-    message op is learnable."""
+    message op is learnable. A naive model's head also takes the device
+    adjacency ``adj``."""
 
     def __init__(self, msg_op: Optional[nn.Module] = None, head: nn.Module = None):
         super().__init__()
@@ -66,8 +69,10 @@ class PrecomputeModel(nn.Module):
             self.msg_op.reset_parameters(generator)
         self.head.reset_parameters(generator)
 
-    def forward(self, inputs):
+    def forward(self, inputs, adj=None):
         x = inputs if self.msg_op is None else self.msg_op(inputs)
+        if adj is not None:
+            return self.head(x, adj)
         return self.head(x)
 
 
@@ -157,6 +162,26 @@ def make_nafs(cfg: ModelConfig, feat_dim: int, output_dim: int) -> ModelSpec:
                  LogisticRegression(feat_dim, output_dim))
 
 
+def make_gcn(cfg: ModelConfig, feat_dim: int, output_dim: int) -> ModelSpec:
+    """Naive GCN: the normalized adjacency rides into the head."""
+    return ModelSpec(
+        name="gcn", graph_op="sym", naive=True, prop_steps=cfg.prop_steps,
+        module=PrecomputeModel(head=Layer2GraphConvolution(
+            feat_dim, cfg.hidden_dim, output_dim, dropout=cfg.dropout)),
+    )
+
+
+def make_clean_train(cfg: ModelConfig, feat_dim: int, output_dim: int) -> ModelSpec:
+    """The augmentation flow's model: a bare FeatureAugment2MLP on the raw
+    features, returning ``(hidden, logits)``. Its trainer (the reference's
+    ``train/augment_train.py::TrainModel``) comes with the link slice."""
+    return ModelSpec(
+        name="clean_train", graph_op=None, prop_steps=0,
+        module=PrecomputeModel(head=FeatureAugment2MLP(
+            feat_dim, cfg.hidden_dim, output_dim, dropout=cfg.dropout)),
+    )
+
+
 def _unported(name: str, where: str):
     def ctor(cfg: ModelConfig, feat_dim: int, output_dim: int) -> ModelSpec:
         raise NotImplementedError(f"model {name!r} is not ported yet: {where}")
@@ -171,8 +196,8 @@ MODEL_REGISTRY: Dict[str, Callable[[ModelConfig, int, int], ModelSpec]] = {
     "gbp": make_gbp,
     "gamlp": make_gamlp,
     "nafs": make_nafs,
-    "gcn": _unported("gcn", TRAINING_SLICE),
-    "clean_train": _unported("clean_train", TRAINING_SLICE),
+    "gcn": make_gcn,
+    "clean_train": make_clean_train,
     "wavelet": _unported("wavelet", SPECTRAL_SLICE),
     "magnet": _unported("magnet", SPECTRAL_SLICE),
     "two_dir": _unported("two_dir", SPECTRAL_SLICE),

@@ -110,6 +110,20 @@ def check_operands(name: str, **tensors) -> None:
         raise TypeError(f"{name}: unsupported device {dev}")
 
 
+def refuse_grad(name: str, why: str, **tensors) -> None:
+    """Refuse to run a forward-only kernel where autograd would need its
+    gradient: its output, written through a raw pointer, would be cut off
+    from the graph. Raises ``RuntimeError`` on every device, so that the CPU
+    tests see what the card would do."""
+    import torch
+
+    if not torch.is_grad_enabled():
+        return
+    wanted = sorted(arg for arg, t in tensors.items() if t.requires_grad)
+    if wanted:
+        raise RuntimeError(f"{name}: no gradient for {', '.join(wanted)}: {why}")
+
+
 def stream_of(t) -> int:
     """The raw handle of PyTorch's current stream on ``t``'s device."""
     import torch

@@ -86,6 +86,11 @@ def banded_spmm_plain(blocks: torch.Tensor, los: torch.Tensor, x: torch.Tensor,
     return out
 
 
+NO_GRAD = ("the banded kernel is forward-only, as the reference's _banded_kernel "
+           "(ROADMAP.md section 2, item 2); differentiate through the dense or "
+           "hybrid engine")
+
+
 def banded_spmm(blocks: torch.Tensor, los: torch.Tensor, x: torch.Tensor,
                 round_x: bool = False) -> torch.Tensor:
     """``out[b*rb + i] = sum_k blocks[b, i, k] * xt[los[b] + k]``.
@@ -96,8 +101,11 @@ def banded_spmm(blocks: torch.Tensor, los: torch.Tensor, x: torch.Tensor,
     rounded to bf16 when ``round_x`` is set or the blocks are bf16. The
     window starts must be >= 0, as the pack functions guarantee; the kernel does
     not check them. CUDA tensors go to the kernel (counted in
-    ``banded_spmm.launches``), CPU tensors to :func:`banded_spmm_plain`."""
+    ``banded_spmm.launches``), CPU tensors to :func:`banded_spmm_plain`.
+    Forward only, as the reference's kernel: asked for a gradient, it
+    raises."""
     _check(blocks, los, x)
+    _nvcc.refuse_grad(NAME, NO_GRAD, blocks=blocks, x=x)
     if x.device.type == "cpu":
         return banded_spmm_plain(blocks, los, x, round_x)
     nb, rb, w = blocks.shape

@@ -15,6 +15,12 @@ before the next, so that most of the x it gathers from stays in L2. For CPU
 tensors the wrapper runs :func:`ell_spmm_plain`, which sums every slot as the
 reference does. There is no other path: a CUDA tensor launches the kernel or
 raises.
+
+The kernel has no gradient of its own. Autograd reaches it through
+:class:`ssrg_torch.ops.sparse.DifferentiableAdj`, whose backward runs this
+same kernel on the pack of the transposed adjacency; called directly where a
+gradient is wanted, the wrapper raises rather than return an output cut off
+from the graph.
 """
 
 from __future__ import annotations
@@ -28,6 +34,9 @@ from ssrg_torch.ops import _nvcc
 NAME = "ell_spmm"
 # the kernel's feature tile width, kTile in csrc/ell_spmm.cu
 TILE = 64
+
+NO_GRAD = ("the kernel's gradient is the same kernel on the transposed pack: "
+           "use ops.sparse.differentiable_adjacency (ROADMAP.md section 2, item 1)")
 
 # bytes of gathered neighbour rows the plain version materializes at once
 _PLAIN_CHUNK_BYTES = 1 << 26
@@ -89,8 +98,10 @@ def ell_spmm(cols: torch.Tensor, vals: torch.Tensor, x: torch.Tensor) -> torch.T
     Every column index must lie in ``[0, N)``, as the packs of
     :mod:`ssrg_torch.ops.sparse` guarantee; the kernel does not check them.
     CUDA tensors go to the kernel (counted in ``ell_spmm.launches``), CPU
-    tensors to :func:`ell_spmm_plain`."""
+    tensors to :func:`ell_spmm_plain`. Asked for a gradient (``x`` or
+    ``vals`` requiring grad while grad mode is on), it raises."""
     _check(cols, vals, x)
+    _nvcc.refuse_grad(NAME, NO_GRAD, vals=vals, x=x)
     if x.device.type == "cpu":
         return ell_spmm_plain(cols, vals, x)
     n_rows, width = cols.shape

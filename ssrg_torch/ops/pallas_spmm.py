@@ -17,18 +17,23 @@ import numpy as np
 import scipy.sparse as sp
 import torch
 
+from ssrg_torch.ops import _nvcc
 from ssrg_torch.ops.ell_spmm import ell_spmm
 from ssrg_torch.ops.sparse import COOAdj, _check_rows, _round_up, build_coo
 from ssrg_torch.utils import DeviceLike, resolve_device
 
 ROW_BLOCK = 8  # rows of padding, as the reference's grid step
+NO_GRAD = ("forward only, as the reference's pallas engine, whose pallas_call jax "
+           "cannot differentiate (ROADMAP.md section 3); use engine 'hybrid'")
 
 
 @dataclass
 class PallasELLAdj:
     """ELL pack on the kernel plus a COO tail for rows longer than
-    ``width``. Forward only, as in the reference: the precompute needs no
-    gradient."""
+    ``width``. Forward only, as in the reference, where jax cannot
+    differentiate the ``pallas_call``: asked for a gradient, it raises. The
+    precompute needs none; the naive GCN differentiates through the hybrid
+    engine (:func:`ssrg_torch.ops.sparse.differentiable_adjacency`)."""
 
     cols: torch.Tensor  # int32 [n_pad, width]
     vals: torch.Tensor  # f32   [n_pad, width]
@@ -46,6 +51,7 @@ class PallasELLAdj:
 
     def spmm(self, x: torch.Tensor) -> torch.Tensor:
         _check_rows(x, self.n_cols)
+        _nvcc.refuse_grad("pallas engine", NO_GRAD, x=x)
         out = ell_spmm(self.cols, self.vals, x)[: self.n_rows]
         return self.tail.accumulate(out, x)
 

@@ -96,6 +96,11 @@ def rest_spmm_plain(row_ptr: torch.Tensor, row_end: torch.Tensor, cols: torch.Te
     return out
 
 
+NO_GRAD = ("the rest kernel is forward-only, as the reference's _rest_kernel "
+           "(ROADMAP.md section 2, item 3); differentiate through the dense or "
+           "hybrid engine")
+
+
 def rest_spmm(row_ptr: torch.Tensor, row_end: torch.Tensor, cols: torch.Tensor,
               vals: torch.Tensor, x: torch.Tensor, gather_bf16: bool = False) -> torch.Tensor:
     """``out[r] = sum_{e in [row_ptr[r], row_end[r])} vals[e] * x[cols[e]]``.
@@ -107,8 +112,10 @@ def rest_spmm(row_ptr: torch.Tensor, row_end: torch.Tensor, cols: torch.Tensor,
     F]``. Column indices in the rows' ranges must lie in ``[0, N)``, as
     ``build_rest_segmented`` guarantees; the kernel does not check them.
     CUDA tensors go to the kernel (counted in ``rest_spmm.launches``), CPU
-    tensors to :func:`rest_spmm_plain`."""
+    tensors to :func:`rest_spmm_plain`. Forward only, as the reference's
+    kernel: asked for a gradient, it raises."""
     _check(row_ptr, row_end, cols, vals, x)
+    _nvcc.refuse_grad(NAME, NO_GRAD, vals=vals, x=x)
     if x.device.type == "cpu":
         return rest_spmm_plain(row_ptr, row_end, cols, vals, x, gather_bf16)
     n_rows = row_ptr.shape[0] - 1

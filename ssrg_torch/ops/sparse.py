@@ -22,6 +22,10 @@ reference's packs entry for entry:
   scattered edges (hybrid, blockcoo, or the segmented rest of
   :mod:`ssrg_torch.ops.pallas_rest`).
 - ``BlockCOOAdj`` — COO bucketed by row bucket x column bucket.
+- ``DifferentiableAdj`` — an ELL or hybrid pack under autograd: forward on
+  the pack of A, backward (``A^T g``) on the pack of ``A^T``, both through
+  the ELL kernel; :func:`differentiable_adjacency` builds it for the naive
+  GCN path.
 
 All engines accumulate in float32; banded blocks and tiles may be stored in
 bf16, and their windows of x are then rounded to bf16 before the products.
@@ -35,6 +39,7 @@ from typing import Optional, Tuple, Union
 import numpy as np
 import scipy.sparse as sp
 import torch
+from torch.autograd.function import once_differentiable
 
 from ssrg_torch.ops.banded_spmm import banded_spmm_plain
 from ssrg_torch.ops.ell_spmm import ell_spmm
@@ -299,7 +304,52 @@ class BlockCOOAdj:
                        vals=self.vals.to(dev))
 
 
-Adjacency = Union[DenseAdj, COOAdj, ELLAdj, HybridAdj, BandedAdj, TiledAdj, BlockCOOAdj]
+class _TransposedSpmm(torch.autograd.Function):
+    """``A @ x`` on the forward pack; its gradient ``A^T g`` on the pack of
+    ``A^T``. Both packs run the ELL kernel (its plain version on the CPU);
+    the COO tail of a hybrid is a torch ``index_add_`` in both."""
+
+    @staticmethod
+    def forward(ctx, x, fwd, bwd):
+        ctx.bwd = bwd
+        return fwd.spmm(x)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, grad_out):
+        return ctx.bwd.spmm(grad_out.contiguous()), None, None
+
+
+@dataclass
+class DifferentiableAdj:
+    """An ELL or hybrid adjacency whose SpMM carries gradients to ``x``.
+
+    ``bwd`` is the same format packed from ``A^T`` (the same object when
+    ``A`` equals ``A^T``): the gradient of ``A @ x`` is ``A^T @ g``, the same
+    kernel on the transposed pack. A hybrid's transpose has its own width and
+    its own tail. The reference's XLA engines get this from autodiff; the
+    port's kernel writes through a raw pointer and has no gradient of its
+    own. The adjacency's values take no gradient."""
+
+    fwd: Union[ELLAdj, HybridAdj]
+    bwd: Union[ELLAdj, HybridAdj]
+
+    @property
+    def shape(self) -> Tuple[int, int]:
+        return self.fwd.shape
+
+    @property
+    def symmetric(self) -> bool:
+        return self.bwd is self.fwd
+
+    def spmm(self, x: torch.Tensor) -> torch.Tensor:
+        if torch.is_grad_enabled() and x.requires_grad:
+            return _TransposedSpmm.apply(x, self.fwd, self.bwd)
+        return self.fwd.spmm(x)
+
+
+Adjacency = Union[DenseAdj, COOAdj, ELLAdj, HybridAdj, BandedAdj, TiledAdj, BlockCOOAdj,
+                  DifferentiableAdj]
 
 
 # ---------------------------------------------------------------------------
@@ -629,3 +679,26 @@ def device_adjacency(
     else:
         raise ValueError(f"unknown spmm engine: {engine!r}")
     return built.to(dev)
+
+
+def differentiable_adjacency(
+    adj: sp.spmatrix,
+    engine: str = "auto",
+    device: DeviceLike = "cuda",
+) -> Adjacency:
+    """:func:`device_adjacency` for a path that differentiates through the
+    SpMM (the naive GCN's layers). An ELL or hybrid pack comes back as a
+    :class:`DifferentiableAdj` whose gradient runs the kernel on the pack of
+    ``A^T``, built here on the host next to the forward pack; that pack is
+    reused only when ``A`` equals ``A^T`` exactly. The other packs come back
+    as they are: dense and coo are torch operations, and ``pallas`` stays
+    forward-only, as in the reference, where jax cannot differentiate its
+    ``pallas_call``."""
+    dev = resolve_device(device)
+    fwd = device_adjacency(adj, engine, device=dev)
+    if not isinstance(fwd, (ELLAdj, HybridAdj)):
+        return fwd
+    if adj.shape[0] == adj.shape[1] and (adj != adj.T).nnz == 0:
+        return DifferentiableAdj(fwd, fwd)
+    packed_as = "hybrid" if isinstance(fwd, HybridAdj) else "ell"
+    return DifferentiableAdj(fwd, device_adjacency(adj.T.tocsr(), packed_as, device=dev))

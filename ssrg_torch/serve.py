@@ -1,14 +1,15 @@
 """Serving (counterpart of ``ssrg_tpu/serve.py``): run the precompute once,
 then answer node-id batches.
 
->>> pred = Predictor(ds, spec, mc, tc, params=state_dict)   # on cuda
+>>> task = NodeClassification(ds, spec, mc, tc)                  # writes tc.checkpoint_path
+>>> pred = Predictor(ds, spec, mc, tc, checkpoint_path=tc.checkpoint_path)
 >>> labels = pred.predict(node_ids)
 >>> probs = pred.predict_proba(node_ids)
 
-``params`` is a state dict of the model: ``PrecomputeModel.state_dict()``,
-or :func:`ssrg_torch.convert.params_from_jax` of a flax parameter tree.
-Reading flax msgpack checkpoints comes with the training slice
-(ROADMAP.md).
+``checkpoint_path`` is a checkpoint of either package (flax msgpack and its
+``.json`` sidecar); ``params`` a state dict of the model
+(``PrecomputeModel.state_dict()``, or
+:func:`ssrg_torch.convert.params_from_jax` of a flax parameter tree).
 """
 
 from __future__ import annotations
@@ -20,14 +21,17 @@ import torch
 
 from ssrg_torch.configs.config import ModelConfig, TrainingConfig
 from ssrg_torch.models.zoo import ModelSpec
-from ssrg_torch.train.node_classification import prepare, slice_inputs
+from ssrg_torch.train.node_classification import load_checkpoint, prepare, slice_inputs
 from ssrg_torch.utils import DeviceLike, resolve_device
 
 
 class Predictor:
     """Node-classification inference on ``device`` (``cuda`` by default).
 
-    Without ``params`` the model keeps its own initialization."""
+    Without ``params`` or ``checkpoint_path`` the model keeps its own
+    initialization. A model with BatchNorm needs a checkpoint that holds its
+    statistics (``ValueError`` otherwise, as in the reference). A naive
+    model (GCN) runs on the whole graph and selects the asked rows."""
 
     def __init__(
         self,
@@ -35,6 +39,7 @@ class Predictor:
         spec: ModelSpec,
         model_cfg: ModelConfig,
         training_cfg: Optional[TrainingConfig] = None,
+        checkpoint_path: Optional[str] = None,
         params: Optional[Mapping] = None,
         device: DeviceLike = "cuda",
     ):
@@ -42,6 +47,9 @@ class Predictor:
         self.prepared = prepare(spec, dataset, model_cfg,
                                 training_cfg or TrainingConfig(), device=self.device)
         self.module = self.prepared.module.to(self.device).eval()
+        self.metadata = None
+        if checkpoint_path:
+            self.metadata = load_checkpoint(self.module, checkpoint_path)
         if params is not None:
             self.module.load_state_dict(params, strict=True)
         self.num_nodes = int(self.prepared.inputs.shape[-2])
@@ -54,7 +62,10 @@ class Predictor:
         if ids.size and (ids.min() < 0 or ids.max() >= self.num_nodes):
             raise IndexError(f"node ids must lie in [0, {self.num_nodes})")
         idx = torch.as_tensor(ids, device=self.device)
-        return self.module(slice_inputs(self.prepared, idx))
+        p = self.prepared
+        if p.adj_device is not None:
+            return self.module(p.inputs, p.adj_device)[idx]
+        return self.module(slice_inputs(p, idx))
 
     def predict_proba(self, node_ids) -> torch.Tensor:
         return torch.softmax(self.logits(node_ids), dim=-1)

@@ -1,6 +1,6 @@
 """The PyTorch port stands alone: no file of ``ssrg_torch``, no
-``chip_smoke.py`` and no ``tools/ell_variants.py`` imports jax, flax, optax
-or ``ssrg_tpu``; importing the port pulls none of them in; and both scripts
+``chip_smoke.py`` and no ``tools/ell_variants.py`` imports jax, flax, optax,
+msgpack or ``ssrg_tpu``; importing the port pulls none of them in; and both scripts
 fail without a CUDA card, ``chip_smoke.py`` also without the rest of the
 repository."""
 
@@ -15,7 +15,7 @@ import pytest
 import torch
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "ssrg_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "msgpack", "ssrg_tpu")
 PACKAGE_FILES = sorted((ROOT / "ssrg_torch").rglob("*.py"))
 PORT_FILES = PACKAGE_FILES + [ROOT / "chip_smoke.py", ROOT / "tools" / "ell_variants.py"]
 

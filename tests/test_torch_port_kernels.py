@@ -299,3 +299,137 @@ def test_rest_spmm_kernel_matches_plain(cuda_device, case):
     tol = 2.0 * counts * UNIT_ROUNDOFF * rest_spmm_plain(rp, re, c, v.abs(), x.abs(), case[7])
     diff = (out - rest_spmm_plain(rp, re, c, v, x, case[7])).abs()
     assert bool((diff <= tol + 1e-30).all()), float(diff.max())
+
+
+# --- gradients: the ELL kernel under autograd, the forward-only kernels ------
+
+
+def _transposed_ell(cols, vals, n_cols):
+    """The ELL pack of ``A^T`` for an ELL pack of ``A`` (duplicate columns
+    of a row summed, zero slots dropped)."""
+    rows, width = cols.shape
+    a = sp.csr_matrix((vals.reshape(-1), (np.repeat(np.arange(rows), width), cols.reshape(-1))),
+                      shape=(rows, n_cols))
+    a.sum_duplicates()
+    a.eliminate_zeros()
+    return sparse.build_ell(a.T.tocsr())
+
+
+def _ell_grad_check(case, device):
+    """``x``'s gradient through the ELL ``Function`` (backward: the kernel on
+    the transposed pack) against autograd through ``ell_spmm_plain``, for
+    the same output gradient. Each sums a column's terms of A in its own
+    order (the transposed pack summed duplicate slots once more): within
+    ``2 (c + 1) u sum|v g|``, c the longest column."""
+    rows, n = case[:2]
+    c, v, xx = _ell_tensors(case, device)
+    bwd = _transposed_ell(c.cpu().numpy(), v.cpu().numpy(), n).to(device)
+    adj = sparse.DifferentiableAdj(sparse.ELLAdj(c, v, n_rows=rows, n_cols=n, row_block=1), bwd)
+    g = torch.from_numpy(np.random.default_rng(1).normal(size=(rows, case[3]))
+                         .astype(np.float32)).to(device)
+    x = xx.detach().requires_grad_()
+    before = ell_spmm.launches
+    adj.spmm(x).backward(g)
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+        assert ell_spmm.launches == before + 2  # the forward and the backward
+    x_plain = xx.detach().clone().requires_grad_()
+    ell_spmm_plain(c, v, x_plain).backward(g)
+    mag = ell_spmm_plain(bwd.cols, bwd.vals.abs(), g.abs())[:n]
+    tol = 2.0 * (bwd.width + 1) * UNIT_ROUNDOFF * mag + 1e-30
+    diff = (x.grad - x_plain.grad).abs()
+    assert bool((diff <= tol).all()), float(diff.max())
+
+
+@pytest.mark.parametrize("case", ELL_CASES, ids=_ell_id)
+def test_ell_function_gradient_plain(case):
+    _ell_grad_check(case, torch.device("cpu"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ELL_CASES, ids=_ell_id)
+def test_ell_function_gradient_kernel(cuda_device, case):
+    _ell_grad_check(case, cuda_device)
+
+
+def _hybrid_grad_check(r, f, device):
+    """The naive path's hybrid adjacency of ``sym_norm(r)`` on a power-law
+    graph (hub rows give each pack a tail): the pack of A^T is the forward
+    pack itself exactly when A is symmetric (r = 0.5), and x's gradient
+    equals autograd through ``ell_spmm_plain`` and the tail's
+    ``index_add``, within ``2 (c + 1) u (|A|^T |g|)``, c the most nonzeros
+    of a row or column."""
+    from ssrg_torch.data.synthetic import powerlaw_graph
+    from ssrg_torch.ops.normalize import sym_norm
+
+    adj = sym_norm(powerlaw_graph(3000, 8.0, 4, seed=0).adj, r)
+    dadj = sparse.differentiable_adjacency(adj, "hybrid", device=device)
+    assert dadj.symmetric == (r == 0.5) == ((adj != adj.T).nnz == 0)
+    assert int((dadj.fwd.tail.val != 0).sum()) > 0
+    rng = np.random.default_rng(2)
+    x0 = torch.from_numpy(rng.normal(size=(3000, f)).astype(np.float32)).to(device)
+    g = torch.from_numpy(rng.normal(size=(3000, f)).astype(np.float32)).to(device)
+    x = x0.clone().requires_grad_()
+    before = ell_spmm.launches
+    dadj.spmm(x).backward(g)
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+        assert ell_spmm.launches == before + 2
+    x_plain = x0.clone().requires_grad_()
+    fwd, tail = dadj.fwd.ell, dadj.fwd.tail
+    out = ell_spmm_plain(fwd.cols, fwd.vals, x_plain)[:3000]
+    out.index_add(0, tail.row, x_plain.index_select(0, tail.col) * tail.val[:, None]).backward(g)
+    counts = max(np.diff(adj.tocsr().indptr).max(), np.diff(adj.tocsc().indptr).max())
+    mag = torch.from_numpy((abs(adj).T @ np.abs(g.cpu().numpy().astype(np.float64)))
+                           .astype(np.float32)).to(device)
+    tol = 2.0 * (counts + 1) * UNIT_ROUNDOFF * mag + 1e-30
+    diff = (x.grad - x_plain.grad).abs()
+    assert bool((diff <= tol).all()), float(diff.max())
+
+
+@pytest.mark.parametrize("r", [0.5, 0.3], ids=["symmetric", "asymmetric"])
+@pytest.mark.parametrize("f", [40, 256])
+def test_hybrid_function_gradient_plain(r, f):
+    _hybrid_grad_check(r, f, torch.device("cpu"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("r", [0.5, 0.3], ids=["symmetric", "asymmetric"])
+@pytest.mark.parametrize("f", [40, 256])
+def test_hybrid_function_gradient_kernel(cuda_device, r, f):
+    _hybrid_grad_check(r, f, cuda_device)
+
+
+def test_kernels_refuse_to_run_under_autograd():
+    """A kernel's output written through a raw pointer has no grad_fn: asked
+    for a gradient, each wrapper raises (here on the CPU too), and runs as
+    before under ``torch.no_grad``."""
+    from ssrg_torch.ops.pallas_spmm import build_pallas_csr
+
+    blocks, los, x, _ = _banded_case(*BANDED_CASES[0])
+    for args in ((blocks, los, x.clone().requires_grad_()),
+                 (blocks.clone().requires_grad_(), los, x)):
+        with pytest.raises(RuntimeError, match="forward-only"):
+            banded_spmm(*args)
+        with torch.no_grad():
+            banded_spmm(*args)
+    pack, x, _ = _rest_case(*REST_CASES[0])
+    rp, re_, c, v = pack.row_ptr, pack.row_end, pack.cols, pack.vals
+    for args in ((rp, re_, c, v, x.clone().requires_grad_()),
+                 (rp, re_, c, v.clone().requires_grad_(), x)):
+        with pytest.raises(RuntimeError, match="forward-only"):
+            rest_spmm(*args)
+    cols, vals, xe, _ = _ell_case(16, 20, 4, 8, 0.0)
+    c, v, xe = torch.from_numpy(cols), torch.from_numpy(vals), torch.from_numpy(xe)
+    for args in ((c, v.clone().requires_grad_(), xe), (c, v, xe.clone().requires_grad_())):
+        with pytest.raises(RuntimeError, match="transposed pack"):
+            ell_spmm(*args)
+    adj = sp.random(30, 30, 0.2, format="csr", random_state=0, dtype=np.float32)
+    xg = torch.ones(30, 4, requires_grad=True)
+    for built in (sparse.build_ell(adj), sparse.build_hybrid(adj)):
+        with pytest.raises(RuntimeError, match="differentiable_adjacency"):
+            built.spmm(xg)
+    with pytest.raises(RuntimeError, match="forward only"):
+        build_pallas_csr(adj).spmm(xg)
+    with torch.no_grad():
+        assert build_pallas_csr(adj).spmm(xg).shape == (30, 4)

@@ -186,19 +186,15 @@ def test_predictor_rejects_out_of_range_ids(datasets):
 
 def test_unported_paths_raise(datasets):
     _, ds = datasets
-    for name in ("gcn", "clean_train", "wavelet", "magnet", "two_dir", "two_order"):
+    for name in ("wavelet", "magnet", "two_dir", "two_order"):
         assert name in MODEL_REGISTRY
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             load_model(ModelConfig(model_name=name), 48, 4)
     spec = load_model(ModelConfig(model_name="sgc"), 48, 4)
-    for flags in (dict(naive=True), dict(spectral=True), dict(graph_op="magnetic"),
-                  dict(graph_op=None)):
+    for flags in (dict(spectral=True), dict(graph_op="magnetic")):
         other = ModelSpec(**{**dict(name="x", graph_op="sym", module=spec.module), **flags})
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             prepare(other, ds, ModelConfig(), TrainingConfig(), device=CPU)
-    for kwargs in (dict(bn=True), dict(dtype="bfloat16")):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            heads.MultiLayerPerceptron(4, 8, 2, **kwargs)
     with pytest.raises(TypeError):
         prepare(ModelConfig(), ds, ModelConfig(), TrainingConfig(), device=CPU)
 
