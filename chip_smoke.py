@@ -1,12 +1,17 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (``ssrg_torch``) on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--trace_dir DIR]
 
 Phases, each printing JSON lines:
 
 1. build    — ``nvcc`` builds every kernel of the port from
               ``ssrg_torch/csrc``, one process per source, all at once.
+   native   — ``c++`` builds the host library (``csrc/graphbuild.cpp``);
+              its label propagation on the 169,343-node community graph
+              held equal to the numpy version's, its ELL/hybrid packer to
+              the numpy packer's on the headline and power-law graphs, all
+              timed, beside the OpenMP thread count.
 2. kernels  — the ELL kernel against its plain PyTorch version on the card:
               the headline hybrid pack (the serving path's own shapes), the
               power-law pack, the headline pack folded onto an x that fits
@@ -28,7 +33,8 @@ Phases, each printing JSON lines:
               reach and a library call, then on ragged packs; GAMLP through
               ``Predictor`` with ``reorder_banded`` (f32, bf16) and
               ``reorder_tiled`` + ``spmm_bf16``, each with its kernel's
-              launch count, hop K against float64 scipy and the requests.
+              launch count, hop K against float64 scipy and the requests;
+              each ``prepare`` beside the 5 s limit.
 5. train    — training through ``NodeClassification`` on a 169,343-node,
               F = 128, 40-class SBM with ogbn-arxiv's split sizes: GAMLP at
               full width (minibatches of 10,000, batched evaluation, a
@@ -40,8 +46,17 @@ Phases, each printing JSON lines:
               checkpoint recorded served again, and fc1's gradient against
               autograd through the plain version; the autograd ``Function``
               against the plain version on a symmetric and an asymmetric
-              pack at F = 256 and F = 40, timed beside the bound.
+              pack at F = 256 and F = 40, timed beside the bound. Three more
+              GCN epochs under ``device_trace``: their top device operations
+              and the device-busy share.
+6. bench    — ``ssrg_torch.bench.run_bench()`` at its defaults (169,343
+              nodes, degree 13.7, F = 128, K = 3, 10 iterations): its JSON
+              line, each tier's kernel launches (headline: ELL, clustered:
+              rest, banded: banded), the headline hops traced with
+              ``device_trace``, and the banded kernel against its plain
+              version on the banded tier's dense pack, timed.
 
+``--trace_dir`` keeps the two Chrome traces (default: a temporary directory).
 Then a ``{"kernels": [...]}`` line, the card's name and power limit, and as
 the last line ``{"ok": true, "device": {...}}``. Any failed check raises and
 the script exits non-zero without that line; without a CUDA card it exits 2,
@@ -50,11 +65,13 @@ and without the ``ssrg_torch`` package beside it, before printing anything.
 
 from __future__ import annotations
 
+import argparse
 import copy
 import dataclasses
 import json
 import logging
 import os
+import platform
 import subprocess
 import sys
 import tempfile
@@ -70,6 +87,8 @@ NUM_NODES, AVG_DEGREE, NUM_FEATURES, NUM_CLASSES = 169_343, 13.7, 128, 40
 BANDED_NEIGHBOURS, BANDED_REACH = 7, 1000
 L2_ROWS = 16_384              # rows of x in the ELL kernel's L2-resident case
 SEED = 0
+PREPARE_LIMIT_S = 5.0         # PERF.md section 2: prepare at 169,343 nodes
+BENCH_NNZ = 2_489_237         # the headline graph's edges at the bench's defaults
 KERNELS = ("ell_spmm", "banded_spmm", "rest_spmm")
 REPLACES = {
     "ell_spmm": "ssrg_tpu/ops/pallas_spmm.py:47",
@@ -194,6 +213,64 @@ def phase_build() -> None:
                  if "registers" in ln or "spill" in ln]
         emit({"phase": "build", "source": f"ssrg_torch/csrc/{name}.cu",
               "seconds_all": seconds, "ptxas": ptxas})
+
+
+def build_native() -> dict:
+    """Build the host library from its source and load that build, before
+    anything of the port has loaded a library (a copied tree may hold an
+    older one): the ``native`` phase's first fields."""
+    from ssrg_torch import native
+    from ssrg_torch.ops import _nvcc
+
+    check(native._lib is None, "the host library was loaded before its build")
+    t0 = time.perf_counter()
+    _nvcc.build_host(native.LIBRARY, force=True)
+    native.load_library()
+    return {"phase": "native", "source": f"ssrg_torch/csrc/{native.LIBRARY}.cpp",
+            "build_s": time.perf_counter() - t0, "compiler_flags": _nvcc.CXX_FLAGS,
+            "omp_max_threads": native.omp_max_threads(),
+            # the host the host times were taken on
+            "host": {"machine": platform.machine(), "cpus": os.cpu_count(),
+                     "cpus_usable": len(os.sched_getaffinity(0))}}
+
+
+def phase_native(rec: dict, packer_inputs: dict) -> None:
+    """The host library (built by :func:`build_native`, whose fields
+    ``rec`` holds) on the path's host work: its label propagation on the
+    full community graph (normalized, as ``reorder_tiled``'s ``prepare``
+    clusters it) held equal to ``lpa_cluster_plain``'s labels, and its
+    ELL/hybrid packer held equal to ``ell_hybrid_pack_plain`` on each graph
+    of ``packer_inputs`` (name -> (normalized CSR, ELL width)), the tail
+    compared in row order. Each timed on the host clock beside the plain
+    version."""
+    from ssrg_torch import native
+    from ssrg_torch.data.synthetic import community_graph
+    from ssrg_torch.ops.normalize import sym_norm
+
+    adj = sym_norm(community_graph(NUM_NODES, seed=SEED), 0.5)
+    t0 = time.perf_counter()
+    labels = native.lpa_cluster(adj.indptr, adj.indices)
+    t1 = time.perf_counter()
+    plain = native.lpa_cluster_plain(adj.indptr, adj.indices)
+    t2 = time.perf_counter()
+    check(np.array_equal(labels, plain), "lpa_cluster: labels differ from lpa_cluster_plain's "
+          f"at {int((labels != plain).sum())} nodes")
+    rec.update(lpa_nodes=NUM_NODES, lpa_nnz=int(adj.nnz), lpa_s=t1 - t0,
+               lpa_plain_s=t2 - t1, lpa_clusters=int(np.unique(labels).size))
+    for name, (csr, width) in packer_inputs.items():
+        n_pad = -(-csr.shape[0] // 256) * 256
+        t0 = time.perf_counter()
+        got = native.ell_hybrid_pack(csr.indptr, csr.indices, csr.data, width, n_pad)
+        t1 = time.perf_counter()
+        want = native.ell_hybrid_pack_plain(csr.indptr, csr.indices, csr.data, width, n_pad)
+        t2 = time.perf_counter()
+        order = np.argsort(got[2], kind="stable")
+        same = (all(np.array_equal(a, b) for a, b in zip(got[:2], want[:2]))
+                and all(np.array_equal(a[order], b) for a, b in zip(got[2:], want[2:])))
+        check(same, f"ell_hybrid_pack on {name}: the pack differs from the plain version's")
+        rec[f"pack_{name}"] = {"width": width, "tail": int(got[2].size), "s": t1 - t0,
+                               "plain_s": t2 - t1}
+    emit(rec)
 
 
 def hold(name: str, out_k, out_p, tol) -> float:
@@ -809,6 +886,8 @@ def locality_slice(run: str, ds, engine: str, bf16: bool, kernel: str) -> int:
            "num_layers": cfg.num_layers, "prop_steps": k, "classes": NUM_CLASSES,
            "nodes": NUM_NODES, "features": NUM_FEATURES, "nnz": int(a64.nnz),
            "engine": engine, "spmm_bf16": bf16, "prepare_s": prepare_s,
+           "prepare_limit_s": PREPARE_LIMIT_S,
+           "prepare_within_limit": prepare_s <= PREPARE_LIMIT_S,
            "prepare_launches": launches, "hop_k_max_abs_err_vs_f64": float(err.max()),
            "hop_k_max_rel_err_vs_f64": float((err / (ref_abs + 1e-30)).max()),
            "hop_tolerance": hop_tol, "requests": request_times(requests),
@@ -1138,12 +1217,50 @@ def gcn_gradient_check(task, adj_norm) -> dict:
             "fc1_weight_grad_err_over_bound_max": float((err_w / (tol_w + 1e-30)).max())}
 
 
-def train_gcn(ds, adj_norm) -> dict:
+TRACED_EPOCHS = 3
+
+
+def check_trace(summary: dict, what: str) -> dict:
+    """Check that a trace's summary (top operations and busy share) saw
+    device work; returns the summary."""
+    check(bool(summary["top_ops"]) and summary["device_events"] > 0
+          and 0.0 < summary["busy_share"] <= 1.0,
+          f"{what}: the trace holds no device work ({summary})")
+    return summary
+
+
+def trace_gcn_epochs(task, trace_dir: str) -> dict:
+    """``TRACED_EPOCHS`` more epochs of the trained GCN, each as the epoch
+    loop runs it (a training epoch, then an evaluation whose accuracies
+    come to the host), under ``device_trace``; checks 6 ``ell_spmm``
+    launches an epoch."""
+    import torch
+
+    from ssrg_torch.logger import device_trace
+    from ssrg_torch.train import NodeClassification
+
+    np_rng = np.random.default_rng(SEED)
+    reset_launches()
+    with device_trace(trace_dir, device="cuda") as trace:
+        for _ in range(TRACED_EPOCHS):
+            NodeClassification.train_epoch(task, task.state, np_rng)
+            _ = [float(a) for a in NodeClassification.evaluate(task, task.state)]
+        torch.cuda.synchronize()
+    launches = read_launches()
+    check(launches["ell_spmm"] == 6 * TRACED_EPOCHS,
+          f"traced GCN epochs launched {launches}, expected ell_spmm 6 an epoch")
+    summary = {"path": trace.path, "top_ops": trace.top_ops(5), **trace.busy_share()}
+    return {"phase": "train_trace", "run": "gcn", "epochs": TRACED_EPOCHS,
+            "launches": launches, "trace": check_trace(summary, "GCN epochs")}
+
+
+def train_gcn(ds, adj_norm, trace_dir: str) -> dict:
     """The naive GCN (hidden 256) on the full graph with ``engine="auto"``
     (hybrid). Checks: ``prepare`` launches nothing; each epoch launches
     ``ell_spmm`` 6 times (the training forward 2, its backward 2, one
     evaluation forward 2); the loss falls from the first epoch to the last;
-    the gradient check of :func:`gcn_gradient_check`."""
+    the gradient check of :func:`gcn_gradient_check`. Then
+    :func:`trace_gcn_epochs`."""
     from ssrg_torch.configs.config import ModelConfig, TrainingConfig
     from ssrg_torch.ops.sparse import DifferentiableAdj
 
@@ -1168,6 +1285,7 @@ def train_gcn(ds, adj_norm) -> dict:
            "launches_per_epoch": per_epoch}
     rec.update(gcn_gradient_check(task, adj_norm))
     emit(rec)
+    emit(trace_gcn_epochs(task, trace_dir))
     return rec
 
 
@@ -1221,9 +1339,10 @@ def function_gradient_cases(ds, adj_norm) -> dict:
     return recs
 
 
-def phase_train() -> dict:
-    """The training slice on one graph: GAMLP, the GCN and the ``Function``
-    cases. Returns the launches of each run and the timed records."""
+def phase_train(trace_root: str) -> dict:
+    """The training slice on one graph: GAMLP, the GCN (three of its epochs
+    traced into ``trace_root``) and the ``Function`` cases. Returns the
+    launches of each run and the timed records."""
     import torch
 
     from ssrg_torch.data.synthetic import planetoid_like
@@ -1250,7 +1369,7 @@ def phase_train() -> dict:
     torch.cuda.empty_cache()
     stage_s["gamlp_and_predictor"] = time.perf_counter() - t0
     t0 = time.perf_counter()
-    gcn = train_gcn(ds, adj_norm)
+    gcn = train_gcn(ds, adj_norm, os.path.join(trace_root, "gcn_epochs"))
     torch.cuda.empty_cache()
     stage_s["gcn_and_gradient_check"] = time.perf_counter() - t0
     t0 = time.perf_counter()
@@ -1262,7 +1381,82 @@ def phase_train() -> dict:
             "timed": timed}
 
 
+# --- the bench entry point -----------------------------------------------------
+
+# the bench's functions that each drive one tier, and the kernel each launches
+BENCH_TIERS = (("device_edges_per_s", "headline", "ell_spmm"),
+               ("clustered_tier_metrics", "clustered", "rest_spmm"),
+               ("banded_tier_metrics", "banded", "banded_spmm"))
+
+
+def phase_bench(trace_dir: str) -> dict:
+    """``run_bench()`` at its defaults on the card, its headline hops traced.
+    Each tier's function is wrapped so that the launch counts are set to 0
+    just before it and read just after. Checks: the headline, library,
+    clustered and banded rates finite and positive; the headline graph's
+    nnz; each tier launched only its kernel, once a hop of each of its runs
+    (a warm run and two timed runs, and the traced run of the headline).
+    Then the banded kernel held against its plain version on the banded
+    tier's own pack and x (the locality phase holds the headline's ELL pack
+    and the community rest, the other tiers' inputs), timed beside its bound
+    and ``torch.bmm``. Returns each tier's launches of its kernel and that
+    record."""
+    import math
+
+    import torch
+
+    from ssrg_torch import bench
+
+    counted = {}
+    originals = {name: getattr(bench, name) for name, _, _ in BENCH_TIERS}
+
+    def counting(fn, tier):
+        def run(*args, **kwargs):
+            torch.cuda.synchronize()
+            reset_launches()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            counted[tier] = read_launches()
+            return out
+        return run
+
+    for name, tier, _ in BENCH_TIERS:
+        setattr(bench, name, counting(originals[name], tier))
+    t0 = time.perf_counter()
+    result = bench.run_bench(trace_dir=trace_dir)
+    seconds = time.perf_counter() - t0
+    for name, _, _ in BENCH_TIERS:
+        setattr(bench, name, originals[name])
+
+    for key in ("value", "library_edges_per_s", "clustered_edges_per_s",
+                "banded_pallas_edges_per_s"):
+        check(math.isfinite(result[key]) and result[key] > 0, f"bench: {key} = {result[key]}")
+    check(result["nnz"] == BENCH_NNZ, f"bench: nnz {result['nnz']}, expected {BENCH_NNZ}")
+    hops = result["iters"] * result["prop_steps"]
+    launches = {}
+    for _, tier, kernel in BENCH_TIERS:
+        runs = 4 if tier == "headline" else 3
+        expected = {name: (runs * hops if name == kernel else 0) for name in KERNELS}
+        check(counted.get(tier) == expected,
+              f"bench {tier} tier launched {counted.get(tier)}, expected {expected}")
+        launches[kernel] = counted[tier][kernel]
+    emit({"phase": "bench", "seconds": seconds, "launches_by_tier": counted,
+          "trace": check_trace(result["trace"], "bench headline")})
+    torch.cuda.empty_cache()
+    blocks, los, x = bench.banded_tier_inputs(result["num_features"], "cuda")
+    dense = banded_case("bench_banded_dense", blocks, los, x, round_x=True, timed=True)
+    dense["phase"] = "bench"
+    emit(dense)
+    del blocks, los, x
+    torch.cuda.empty_cache()
+    return {"launches": launches, "dense": dense}
+
+
 def main() -> int:
+    parser = argparse.ArgumentParser(description="Drive ssrg_torch on one CUDA card.")
+    parser.add_argument("--trace_dir", default=None,
+                        help="keep the device traces here (default: a temporary directory)")
+    args = parser.parse_args()
     import torch
 
     if not torch.cuda.is_available():
@@ -1280,6 +1474,8 @@ def main() -> int:
         return 3
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    trace_tmp = None if args.trace_dir else tempfile.TemporaryDirectory()
+    trace_root = args.trace_dir or trace_tmp.name
 
     from ssrg_torch.data.synthetic import powerlaw_graph, random_graph
     from ssrg_torch.ops.normalize import sym_norm
@@ -1288,20 +1484,24 @@ def main() -> int:
     emit({"phase": "env", "python": sys.version.split()[0], "torch": torch.__version__,
           "cuda": torch.version.cuda, "device": torch.cuda.get_device_name(0)})
     phase_build()
+    native_rec = build_native()
 
     t0 = time.perf_counter()
     ds = random_graph(NUM_NODES, AVG_DEGREE, NUM_FEATURES, num_classes=NUM_CLASSES,
                       seed=SEED)
     adj_norm = sym_norm(ds.adj, 0.5)
     pg = powerlaw_graph(NUM_NODES, AVG_DEGREE, NUM_FEATURES, seed=SEED)
-    packs = {}
+    packs, normalized = {}, {}
     for name, adj, feats in (("headline", adj_norm, ds.x),
                              ("powerlaw", sym_norm(pg.adj, 0.5), pg.x)):
         packs[name] = (build_hybrid(adj).to("cuda"),
                        torch.as_tensor(feats, device="cuda"))
+        normalized[name] = (adj, packs[name][0].ell.width)
     emit({"phase": "data", "host_s": time.perf_counter() - t0, "nnz": int(adj_norm.nnz),
           "width": packs["headline"][0].ell.width,
           "powerlaw_width": packs["powerlaw"][0].ell.width})
+    phase_native(native_rec, normalized)
+    del normalized
 
     recs = phase_kernels(packs["headline"], packs["powerlaw"])
     del packs
@@ -1315,11 +1515,17 @@ def main() -> int:
     timed.update(locality_recs)
     launches.update(locality_launches)
     torch.cuda.empty_cache()
-    train = phase_train()
+    train = phase_train(trace_root)
+    torch.cuda.empty_cache()
+    bench_run = phase_bench(os.path.join(trace_root, "bench_headline"))
+    bench_launches = bench_run["launches"]
     # each path's launches, counted from 0 just before it and read just after
-    by_path = {"ell_spmm": {"slice": launches["ell_spmm"], **train["launches"]},
-               "banded_spmm": {"banded_f32": launches["banded_spmm"]},
-               "rest_spmm": {"tiled_bf16": launches["rest_spmm"]}}
+    by_path = {"ell_spmm": {"slice": launches["ell_spmm"], **train["launches"],
+                            "bench_headline": bench_launches["ell_spmm"]},
+               "banded_spmm": {"banded_f32": launches["banded_spmm"],
+                               "bench_banded": bench_launches["banded_spmm"]},
+               "rest_spmm": {"tiled_bf16": launches["rest_spmm"],
+                             "bench_clustered": bench_launches["rest_spmm"]}}
 
     emit({"kernels": [{
         "name": name, "route": "cuda", "source": f"ssrg_torch/csrc/{name}.cu",
@@ -1335,11 +1541,17 @@ def main() -> int:
                                        "function_fwd_bwd_ms")}
                                for case, rec in train["timed"].items()}}
            if name == "ell_spmm" else {}),
+        **({"bench_dense_case": {k: bench_run["dense"][k] for k in
+                                 ("ms", "plain_ms", "bound_ms", "bound_by", "bound_share",
+                                  "library_ms", "max_abs_err")}}
+           if name == "banded_spmm" else {}),
     } for name in KERNELS]})
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True)
     print(" | ".join(ln.strip() for ln in smi.stdout.splitlines() if ln.strip()), flush=True)
+    if trace_tmp is not None:
+        trace_tmp.cleanup()
     # the run drives one card, whatever else the machine holds
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": 1}})

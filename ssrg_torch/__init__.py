@@ -10,7 +10,10 @@ the hand-written CUDA ELL SpMM kernel (``csrc/ell_spmm.cu``), the locality
 engines on the banded and rest kernels, the message operators, the heads,
 the model zoo's precompute models and naive GCN, training
 (:class:`ssrg_torch.train.NodeClassification`, with the ELL kernel under
-autograd for the GCN), checkpoints and :class:`ssrg_torch.serve.Predictor`.
+autograd for the GCN), checkpoints and :class:`ssrg_torch.serve.Predictor`,
+the host graph builders on an OpenMP C++ library (:mod:`ssrg_torch.native`,
+``csrc/graphbuild.cpp``), the K-hop bench (:mod:`ssrg_torch.bench`) and the
+logger with its ``torch.profiler`` trace (:mod:`ssrg_torch.logger`).
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
 """
 

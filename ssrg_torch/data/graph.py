@@ -34,23 +34,18 @@ class Edge:
 
 
 def symmetrize_edges(rows, cols, weights, num_nodes: int, clamp_unit: bool = True):
-    """Symmetric, coalesced, self-loop-free scipy CSR from an edge list.
+    """Symmetric, coalesced, self-loop-free scipy CSR from an edge list,
+    with sorted indices, through :func:`ssrg_torch.native.symmetrize_edges`
+    (the host library) as ``ssrg_tpu/data/graph.py:100-103`` does.
 
     Both directions of every edge are summed into one entry; unweighted
     ('..U') graphs clamp the sums to 1 so that symmetrizing an
-    already-symmetric list is idempotent. Same result as
-    ``ssrg_tpu/native.py:107-140`` (its C builder and its scipy fallback).
+    already-symmetric list is idempotent.
     """
-    w = np.asarray(weights, np.float32)
-    adj = sp.coo_matrix(
-        (np.concatenate([w, w]),
-         (np.concatenate([rows, cols]), np.concatenate([cols, rows]))),
-        shape=(num_nodes, num_nodes),
-    ).tocsr()
-    if clamp_unit:
-        adj.data[:] = np.minimum(adj.data, 1.0)
-    adj.setdiag(0)
-    adj.eliminate_zeros()
+    from ssrg_torch import native
+
+    r, c, w = native.symmetrize_edges(rows, cols, weights, num_nodes, clamp_unit=clamp_unit)
+    adj = sp.csr_matrix((w, (r, c)), shape=(num_nodes, num_nodes))
     adj.sort_indices()
     return adj
 

@@ -1,10 +1,14 @@
-"""Build and load the port's CUDA kernels.
+"""Build and load the port's CUDA kernels and its host library.
 
 Each kernel is one source ``ssrg_torch/csrc/<name>.cu`` with a plain C
 interface. It is compiled with ``nvcc`` for ``sm_90a`` into
 ``ssrg_torch/build/lib<name>.so`` (a directory git ignores) at first use and
 loaded with ctypes; the kernel's wrapper declares the C entry's argument
-types. Nothing here runs at import: the CPU tests import every module on a
+types. The host library ``csrc/<name>.cpp`` (OpenMP C++, no device code) is
+built the same way by :func:`build_host` with ``c++`` (``$SSRG_TORCH_CXX``
+names another compiler; ``$CXX`` is not read, since a system's ``CXX`` may
+name a GCC installed without OpenMP's runtime, whose ``-fopenmp`` fails).
+Nothing here runs at import: the CPU tests import every module on a
 machine without ``nvcc``.
 """
 
@@ -24,12 +28,15 @@ NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC",
 ]
+# no -march=native: the library may be built on one host and run on another
+CXX_FLAGS = ["-O3", "-fPIC", "-fopenmp", "-std=c++17", "-shared"]
+CXX_ENV = "SSRG_TORCH_CXX"
 
 _libs: Dict[str, ctypes.CDLL] = {}
 
 
-def source(name: str) -> str:
-    return osp.join(CSRC_DIR, f"{name}.cu")
+def source(name: str, ext: str = ".cu") -> str:
+    return osp.join(CSRC_DIR, f"{name}{ext}")
 
 
 def library_path(name: str) -> str:
@@ -49,9 +56,9 @@ def nvcc() -> str:
     )
 
 
-def _up_to_date(name: str) -> bool:
+def _up_to_date(name: str, ext: str = ".cu") -> bool:
     lib = library_path(name)
-    return osp.exists(lib) and osp.getmtime(lib) >= osp.getmtime(source(name))
+    return osp.exists(lib) and osp.getmtime(lib) >= osp.getmtime(source(name, ext))
 
 
 def build(names: Iterable[str], force: bool = False,
@@ -80,6 +87,28 @@ def build(names: Iterable[str], force: bool = False,
     if failed:
         raise RuntimeError("\n".join(failed))
     return logs
+
+
+def build_host(name: str, force: bool = False) -> str:
+    """Compile the host library ``csrc/<name>.cpp`` with ``c++`` (or
+    ``$SSRG_TORCH_CXX``) unless it is up to date; return the compiler's
+    output. Raises ``RuntimeError`` with the command and its error output
+    when the build fails or the compiler is missing: there is no
+    fallback."""
+    if not force and _up_to_date(name, ".cpp"):
+        return ""
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = f"{library_path(name)}.{os.getpid()}.tmp"
+    cmd = [os.environ.get(CXX_ENV) or "c++", *CXX_FLAGS, "-o", tmp, source(name, ".cpp")]
+    try:
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+    except OSError as exc:
+        raise RuntimeError(f"host build failed: {' '.join(cmd)}\n{exc}") from exc
+    if proc.returncode != 0:
+        raise RuntimeError(f"host build failed ({proc.returncode}): {' '.join(cmd)}\n"
+                           f"{proc.stderr}")
+    os.replace(tmp, library_path(name))
+    return proc.stdout + proc.stderr
 
 
 def library(name: str, declare: Callable[[ctypes.CDLL], None]) -> ctypes.CDLL:

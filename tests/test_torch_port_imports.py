@@ -1,12 +1,15 @@
 """The PyTorch port stands alone: no file of ``ssrg_torch``, no
 ``chip_smoke.py`` and no ``tools/ell_variants.py`` imports jax, flax, optax,
-msgpack or ``ssrg_tpu``; importing the port pulls none of them in; and both scripts
-fail without a CUDA card, ``chip_smoke.py`` also without the rest of the
+msgpack or ``ssrg_tpu``; none of them, nor a source under
+``ssrg_torch/csrc``, names a path under the JAX package's ``native/``
+directory; importing the port pulls none of them in; and both scripts fail
+without a CUDA card, ``chip_smoke.py`` also without the rest of the
 repository."""
 
 import ast
 import os
 import pathlib
+import re
 import shutil
 import subprocess
 import sys
@@ -18,6 +21,7 @@ ROOT = pathlib.Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "msgpack", "ssrg_tpu")
 PACKAGE_FILES = sorted((ROOT / "ssrg_torch").rglob("*.py"))
 PORT_FILES = PACKAGE_FILES + [ROOT / "chip_smoke.py", ROOT / "tools" / "ell_variants.py"]
+SOURCES = sorted((ROOT / "ssrg_torch" / "csrc").iterdir())
 
 
 def _imported_roots(path: pathlib.Path):
@@ -37,6 +41,15 @@ def _imported_roots(path: pathlib.Path):
 def test_port_file_imports_nothing_of_jax(path):
     bad = sorted(set(_imported_roots(path)) & set(FORBIDDEN))
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+@pytest.mark.parametrize("path", PORT_FILES + SOURCES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_port_file_names_no_path_under_native(path):
+    """The port builds its own host library from ``ssrg_torch/csrc``; it
+    never reads the reference's ``native/`` directory (a path into it, or
+    the directory's name joined into a path)."""
+    hits = re.findall(r"\bnative/|join\(.*[\"']native[\"']", path.read_text())
+    assert not hits, f"{path.relative_to(ROOT)} names {hits}"
 
 
 def _run(args, cwd):
