@@ -49,7 +49,20 @@ Phases, each printing JSON lines:
               pack at F = 256 and F = 40, timed beside the bound. Three more
               GCN epochs under ``device_trace``: their top device operations
               and the device-busy share.
-6. bench    — ``ssrg_torch.bench.run_bench()`` at its defaults (169,343
+6. spectral — the spectral and directed-operator models on the ELL kernel:
+              a directed graph at ogbn-arxiv's size (169,343 nodes,
+              1,166,243 directed edges, F = 128, 40 classes) trains magnet
+              (complex propagation, 12 launches a ``prepare``, hop K held to
+              float64 scipy, served through ``Predictor``) and two_dir
+              (un/in/out packs, 9 launches); two_order at Cora's size (dense
+              engine, its eigendecomposition timed); wavelet at PubMed's
+              (19,717 nodes): the Chebyshev construction's 120 launches at
+              F = 1,024, training with the kernel forward and backward on the
+              packs of Φᵀ and Φ⁻ᵀ (8 launches an epoch, conv1's gradient held
+              to the plain version within a first-order bound), and the GWNN
+              trainer. The new kernel shapes timed (the magnetic imaginary
+              pack, PᵀP, the Laplacian at F = 1,024, Φ at F = 256 and 3, Φᵀ).
+7. bench    — ``ssrg_torch.bench.run_bench()`` at its defaults (169,343
               nodes, degree 13.7, F = 128, K = 3, 10 iterations): its JSON
               line, each tier's kernel launches (headline: ELL, clustered:
               rest, banded: banded), the headline hops traced with
@@ -972,24 +985,29 @@ TRAIN_GRAPH = dict(num_node=NUM_NODES, num_classes=NUM_CLASSES, num_features=NUM
 def time_epochs(task) -> dict:
     """Wrap ``task``'s ``train_epoch`` and ``evaluate`` so that each call
     in the run is timed on the host clock, ending in a synchronize (the
-    host epoch loop waits for each epoch's accuracies anyway). Returns the
-    lists the times go into."""
+    host epoch loop waits for each epoch's accuracies anyway), and its
+    ``ell_spmm`` launches counted. Returns the lists the times and counts go
+    into."""
     import torch
 
-    times = {"train_epoch_ms": [], "eval_ms": []}
+    ell = kernel_wrappers()["ell_spmm"]
+    times = {"train_epoch_ms": [], "eval_ms": [], "train_epoch_launches": [],
+             "eval_launches": []}
 
     def timed(fn, key):
         def run(*args, **kwargs):
             torch.cuda.synchronize()
+            before = ell.launches
             t0 = time.perf_counter()
             out = fn(*args, **kwargs)
             torch.cuda.synchronize()
-            times[key].append((time.perf_counter() - t0) * 1e3)
+            times[f"{key}_ms"].append((time.perf_counter() - t0) * 1e3)
+            times[f"{key}_launches"].append(ell.launches - before)
             return out
         return run
 
-    task.train_epoch = timed(task.train_epoch, "train_epoch_ms")
-    task.evaluate = timed(task.evaluate, "eval_ms")
+    task.train_epoch = timed(task.train_epoch, "train_epoch")
+    task.evaluate = timed(task.evaluate, "eval")
     return times
 
 
@@ -1009,7 +1027,7 @@ def keep_checkpoints(task) -> list:
     return saved
 
 
-def train_run(ds, cfg, tc) -> tuple:
+def train_run(ds, cfg, tc, num_classes: int = NUM_CLASSES) -> tuple:
     """``NodeClassification`` on the card, counted and timed: the counts set
     to 0 before it, ``prepare`` and the training run each timed and their
     launches read, every epoch's training and evaluation timed, a copy of
@@ -1023,7 +1041,7 @@ def train_run(ds, cfg, tc) -> tuple:
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
     t0 = time.perf_counter()
-    task = NodeClassification(ds, load_model(cfg, ds.num_features, NUM_CLASSES), cfg, tc,
+    task = NodeClassification(ds, load_model(cfg, ds.num_features, num_classes), cfg, tc,
                               device="cuda", run=False)
     torch.cuda.synchronize()
     t1 = time.perf_counter()
@@ -1381,6 +1399,533 @@ def phase_train(trace_root: str) -> dict:
             "timed": timed}
 
 
+# --- the spectral and directed-operator slice ----------------------------------
+
+SPECTRAL_EPOCHS = 5
+DIRECTED_EDGES = 1_166_243        # ogbn-arxiv's directed edge count
+ARXIV_SPLIT = (90_941, 29_799, 48_603)
+# planetoid_like at PubMed's and Cora's node count, width, classes and split
+# sizes; p_in/p_out give their average degrees (4.5 and 3.9)
+PUBMED = dict(num_node=19_717, num_classes=3, num_features=500, train_per_class=20,
+              num_val=500, num_test=1000, p_in=2.4e-4, p_out=2.4e-5, seed=SEED)
+CORA = dict(num_node=2_708, num_classes=7, num_features=1_433, train_per_class=20,
+            num_val=500, num_test=1000, p_in=2.6e-3, p_out=2.6e-4, seed=SEED)
+TWO_ORDER_MAX_NODES = 10_000      # two_order_ppr_approx_norm's own guard
+
+
+def directed_dataset():
+    """A directed graph at ogbn-arxiv's size: 169,343 nodes, exactly
+    1,166,243 distinct directed edges without self-loops, 90 % of them from
+    a node of class k to one of class k + 1 (mod 40) and the rest anywhere
+    (the class sets the direction, as in ``tests/test_end_to_end.py``);
+    F = 128 features, a class mean plus unit noise; ogbn-arxiv's split
+    sizes; ``Graph(symmetrize=False)``."""
+    from ssrg_torch.data.graph import Graph
+    from ssrg_torch.data.synthetic import InMemoryDataset
+
+    rng = np.random.default_rng(SEED)
+    n, c = NUM_NODES, NUM_CLASSES
+    y = rng.integers(0, c, n)
+    by_class = np.argsort(y, kind="stable")
+    starts = np.searchsorted(y[by_class], np.arange(c + 1))
+    m = DIRECTED_EDGES + DIRECTED_EDGES // 20
+    src = rng.integers(0, n, m)
+    nxt = (y[src] + 1) % c
+    lo, hi = starts[nxt], starts[nxt + 1]
+    dst = by_class[lo + (rng.random(m) * (hi - lo)).astype(np.int64)]
+    anywhere = rng.random(m) < 0.1
+    dst[anywhere] = rng.integers(0, n, int(anywhere.sum()))
+    keys = np.unique((src * n + dst)[src != dst])
+    check(keys.size >= DIRECTED_EDGES, f"only {keys.size} distinct directed edges drawn")
+    keys = rng.permutation(keys)[:DIRECTED_EDGES]
+    x = (rng.normal(size=(c, NUM_FEATURES))[y]
+         + rng.normal(size=(n, NUM_FEATURES))).astype(np.float32)
+    g = Graph(keys // n, keys % n, np.ones(keys.size, np.float32), n, "UUU", x=x, y=y,
+              symmetrize=False)
+    perm = rng.permutation(n)
+    a, b = ARXIV_SPLIT[0], ARXIV_SPLIT[0] + ARXIV_SPLIT[1]
+    return InMemoryDataset(g, perm[:a], perm[a:b], perm[b:], name="directed_arxiv")
+
+
+class Captured:
+    """Replace ``owner[name]`` (a dict entry) or ``owner.name`` by a wrapper
+    that keeps each call's result and its seconds on the host clock, until
+    ``restore``. ``result`` is the first call's."""
+
+    def __init__(self, owner, name: str):
+        self.owner, self.name = owner, name
+        self.fn = owner[name] if isinstance(owner, dict) else getattr(owner, name)
+        self.seconds, self.results = [], []
+
+        def run(*args, **kwargs):
+            t0 = time.perf_counter()
+            out = self.fn(*args, **kwargs)
+            self.seconds.append(time.perf_counter() - t0)
+            self.results.append(out)
+            return out
+
+        self._set(run)
+
+    def _set(self, fn) -> None:
+        if isinstance(self.owner, dict):
+            self.owner[self.name] = fn
+        else:
+            setattr(self.owner, self.name, fn)
+
+    @property
+    def result(self):
+        return self.results[0]
+
+    def restore(self) -> None:
+        self._set(self.fn)
+
+
+def pack_stats(csr) -> dict:
+    """The hybrid pack ``auto`` builds for ``csr``: nnz, stored zeros, ELL
+    width, longest row, the share of padding slots, the tail's entries."""
+    from ssrg_torch.ops.sparse import build_hybrid
+
+    csr = csr.tocsr()
+    pack = build_hybrid(csr)
+    deg = np.diff(csr.indptr)
+    width = pack.ell.width
+    in_ell = int(np.minimum(deg, width).sum())
+    return {"nnz": int(csr.nnz), "stored_zeros": int((csr.data == 0).sum()), "width": width,
+            "longest_row": int(deg.max()), "slots": int(pack.ell.vals.numel()),
+            "padding_share": 1.0 - in_ell / pack.ell.vals.numel(),
+            "tail_nnz": int(csr.nnz) - in_ell}
+
+
+def falling(losses, what: str) -> None:
+    check(len(losses) == SPECTRAL_EPOCHS and all(np.isfinite(losses)) and losses[-1] < losses[0],
+          f"{what} losses {losses}: expected {SPECTRAL_EPOCHS} finite, the last below the first")
+
+
+def spectral_magnet(ds) -> dict:
+    """magnet at ``ModelConfig`` defaults (hidden 256, 3 layers, K = 3, q =
+    0.05) on the directed graph: ``prepare`` launches ``ell_spmm`` 4 K = 12
+    times (four real SpMMs a hop on the hybrid packs of the real and
+    imaginary parts); hop K against float64 scipy ``(A_re + i A_im)^K X``
+    within 1e-4 (both parts); 5 epochs with no launch and a falling loss;
+    then ``Predictor`` with the trained weights serves 1 / 1,000 / 4,096 ids
+    (no launch past its ``prepare``) and agrees with the task's logits. The
+    imaginary pack, whose zero weights are real entries, timed at F = 128."""
+    import torch
+
+    from ssrg_torch.configs.config import ModelConfig, TrainingConfig
+    from ssrg_torch.models import zoo
+    from ssrg_torch.models.zoo import load_model
+    from ssrg_torch.ops.sparse import build_hybrid
+    from ssrg_torch.serve import Predictor
+
+    cfg = ModelConfig(model_name="magnet")
+    k = cfg.prop_steps
+    norm = Captured(zoo.GRAPH_OPS, "magnetic")
+    try:
+        task, run, _ = train_run(ds, cfg, TrainingConfig(num_epochs=SPECTRAL_EPOCHS, lr=0.01))
+    finally:
+        norm.restore()
+    none = {name: 0 for name in KERNELS}
+    check(run["prepare_launches"] == {**none, "ell_spmm": 4 * k},
+          f"magnet prepare launched {run['prepare_launches']}, expected ell_spmm 4K = {4 * k}")
+    check(run["launches"] == run["prepare_launches"], f"magnet training launched {run['launches']}")
+    falling(run["losses"], "magnet")
+    re_a, im_a = norm.result
+    re_k, im_k = task.prepared.inputs
+    a = (re_a.astype(np.complex128) + 1j * im_a.astype(np.float64)).tocsr()
+    ref = np.asarray(ds.x, np.float64)
+    for _ in range(k):
+        ref = a @ ref
+    hop_err = max(float(np.abs(re_k.cpu().numpy() - ref.real).max()),
+                  float(np.abs(im_k.cpu().numpy() - ref.imag).max()))
+    check(hop_err <= 1e-4, f"magnet hop {k} vs float64 scipy: max abs err {hop_err}")
+    del a, ref, re_k, im_k
+
+    params = {key: v.detach().clone() for key, v in task.state.module.state_dict().items()}
+    reset_launches()
+    t0 = time.perf_counter()
+    pred = Predictor(ds, load_model(cfg, ds.num_features, NUM_CLASSES), cfg, TrainingConfig(),
+                     params=params, device="cuda")
+    torch.cuda.synchronize()
+    serve_prepare_s = time.perf_counter() - t0
+    serve_prepare = read_launches()
+    requests = serve_requests(pred, "magnet")
+    check(serve_prepare == run["prepare_launches"] and read_launches() == serve_prepare,
+          f"magnet Predictor launched {serve_prepare} in prepare, {read_launches()} in all")
+    want = task.logits(task.state, requests[-1]["ids"])
+    gap = float((requests[-1]["logits"] - want).abs().max()) / (1.0 + float(want.abs().max()))
+    check(gap <= 1e-4, f"magnet served logits vs the task's: {gap} relative")
+    del pred, task, want
+    torch.cuda.empty_cache()
+
+    imag = build_hybrid(im_a).to("cuda")
+    case = ell_case("magnet_imag_f128", imag.ell.cols, imag.ell.vals,
+                    torch.as_tensor(ds.x, device="cuda"), timed=True, tail=imag.tail)
+    case["phase"] = "spectral"
+    emit(case)
+    emit({"phase": "spectral", "run": "magnet", "hidden": cfg.hidden_dim,
+          "num_layers": cfg.num_layers, "prop_steps": k, "q": cfg.q, "classes": NUM_CLASSES,
+          "nodes": NUM_NODES, "features": NUM_FEATURES, "directed_edges": int(ds.adj.nnz),
+          "normalize_s": norm.seconds,
+          "packs": {"real": pack_stats(re_a), "imag": pack_stats(im_a)},
+          **run, "hop_k_max_abs_err_vs_f64": hop_err, "hop_tolerance": "1e-4 abs",
+          "serve_prepare_s": serve_prepare_s, "serve_logits_rel_err": gap,
+          "requests": request_times(requests)})
+    return {"prepare": run["prepare_launches"]["ell_spmm"], "case": case}
+
+
+def spectral_two_dir(ds) -> dict:
+    """two_dir at defaults on the directed graph: ``prepare`` launches
+    ``ell_spmm`` 3 K = 9 times (the un, in and out packs, K hops each); each
+    pack's nnz, width, padding and tail; 5 epochs with a falling loss. The
+    in pack (PᵀP, the widest rows) timed at F = 128."""
+    import torch
+
+    from ssrg_torch.configs.config import ModelConfig, TrainingConfig
+    from ssrg_torch.models import zoo
+    from ssrg_torch.ops.sparse import build_hybrid
+
+    cfg = ModelConfig(model_name="two_dir")
+    k = cfg.prop_steps
+    norm = Captured(zoo.GRAPH_OPS, "two_dir")
+    try:
+        task, run, _ = train_run(ds, cfg, TrainingConfig(num_epochs=SPECTRAL_EPOCHS, lr=0.01))
+    finally:
+        norm.restore()
+    none = {name: 0 for name in KERNELS}
+    check(run["prepare_launches"] == {**none, "ell_spmm": 3 * k},
+          f"two_dir prepare launched {run['prepare_launches']}, expected ell_spmm 3K = {3 * k}")
+    check(run["launches"] == run["prepare_launches"],
+          f"two_dir training launched {run['launches']}")
+    falling(run["losses"], "two_dir")
+    check(tuple(task.prepared.inputs.shape) == (NUM_NODES, 3 * NUM_FEATURES),
+          f"two_dir inputs {tuple(task.prepared.inputs.shape)}")
+    del task
+    torch.cuda.empty_cache()
+    un, in_l, out_l = norm.result
+    packs = {name: pack_stats(m) for name, m in (("un", un), ("in", in_l), ("out", out_l))}
+    in_pack = build_hybrid(in_l).to("cuda")
+    case = ell_case("two_dir_in_f128", in_pack.ell.cols, in_pack.ell.vals,
+                    torch.as_tensor(ds.x, device="cuda"), timed=True, tail=in_pack.tail)
+    case["phase"] = "spectral"
+    emit(case)
+    emit({"phase": "spectral", "run": "two_dir", "hidden": cfg.hidden_dim,
+          "num_layers": cfg.num_layers, "prop_steps": k, "classes": NUM_CLASSES,
+          "nodes": NUM_NODES, "normalize_s": norm.seconds, "packs": packs, **run})
+    return {"prepare": run["prepare_launches"]["ell_spmm"], "case": case}
+
+
+def spectral_two_order() -> dict:
+    """two_order at Cora's size (planetoid_like): below ``DENSE_THRESHOLD``,
+    so the dense engine and no kernel launch; the host construction (an
+    (N+1)^2 eigendecomposition) timed apart; 5 epochs at the default rate."""
+    from ssrg_torch.configs.config import ModelConfig, TrainingConfig
+    from ssrg_torch.data.synthetic import planetoid_like
+    from ssrg_torch.models import zoo
+
+    ds = planetoid_like(**CORA)
+    cfg = ModelConfig(model_name="two_order")
+    norm = Captured(zoo.GRAPH_OPS, "two_order")
+    try:
+        # the default rate: at 0.01 the MLP on 2 x 1,433 features overshoots
+        _, run, _ = train_run(ds, cfg, TrainingConfig(num_epochs=SPECTRAL_EPOCHS),
+                              num_classes=CORA["num_classes"])
+    finally:
+        norm.restore()
+    none = {name: 0 for name in KERNELS}
+    check(run["prepare_launches"] == none and run["launches"] == none,
+          f"two_order launched {run['launches']}, expected nothing (dense engine)")
+    falling(run["losses"], "two_order")
+    one, two = norm.result
+    emit({"phase": "spectral", "run": "two_order", "nodes": CORA["num_node"],
+          "features": CORA["num_features"], "classes": CORA["num_classes"],
+          "nnz": int(ds.adj.nnz), "engine": "auto (dense)", "construction_s": norm.seconds,
+          "construction_guard_max_nodes": TWO_ORDER_MAX_NODES,
+          "one_order_nnz": int(one.nnz), "two_order_nnz": int(two.nnz), **run})
+    return {"prepare": run["prepare_launches"]["ell_spmm"]}
+
+
+def wavelet_gradient_check(task, phi_h, psi_h) -> dict:
+    """conv1's weight gradient for one step of the wavelet model
+    (evaluation mode, so no dropout), through the model, whose four SpMMs
+    run the ELL kernel forward and, on the packs of Φᵀ and Φ⁻ᵀ, backward,
+    against the same function through ``ell_spmm_plain`` and autograd with
+    the model's ReLU mask; and the gradient at conv1's output.
+
+    Bound, first order, as :func:`gcn_gradient_check`'s: an SpMM of at most
+    c terms an output (c of Φ or Φ⁻¹, over rows and columns) differs between
+    the paths by ``2 c u`` of its sum of |terms|, a product over k terms fed
+    by different inputs by ``2 k u``, a product by θ by ``2 u``, and softmax
+    moves the loss gradient by at most half the largest logit difference.
+    Carried through the absolute values of every operand (Φ and Φ⁻¹ hold
+    only positive entries: the threshold zeroes the rest), they bound the
+    gradient's difference at conv1's output elementwise, and with ``2 N u``
+    more for the sum over nodes, that of conv1's weight."""
+    import torch
+    import torch.nn.functional as F
+
+    from ssrg_torch.ops.sparse import DifferentiableAdj, HybridAdj
+
+    u = UNIT_ROUNDOFF
+    p, module = task.prepared, task.state.module.eval()
+    conv1, conv2 = module.head.conv1, module.head.conv2
+    (phi, psi), x = p.adj_device, p.inputs
+    check(all(isinstance(a, DifferentiableAdj) and isinstance(a.fwd, HybridAdj)
+              and not a.symmetric for a in (phi, psi)),
+          "wavelet adjacencies: expected hybrid packs under autograd, each with a pack of "
+          "its transpose")
+    check(phi_h.data.min() > 0 and psi_h.data.min() > 0, "Φ or Φ⁻¹ holds a non-positive entry")
+    idx = task._split["train"]
+    y = task.labels[idx]
+    n, n_t = x.shape[0], idx.shape[0]
+    c_phi, c_psi = max_terms(phi_h), max_terms(psi_h)
+
+    def grads(forward):
+        module.zero_grad(set_to_none=True)
+        logits, h = forward()
+        h.retain_grad()
+        F.cross_entropy(logits[idx], y).backward()
+        return h.grad.detach(), conv1.weight.grad.detach().clone(), logits.detach()
+
+    def kernel_forward():
+        h = conv1(x, phi, psi)
+        return conv2(h, phi, psi), h
+
+    reset_launches()
+    gh_k, gw_k, z = grads(kernel_forward)
+    torch.cuda.synchronize()
+    launches = read_launches()["ell_spmm"]
+    check(launches == 8, f"one wavelet step launched ell_spmm {launches} times, expected 8 "
+          "(4 forward, 4 backward)")
+
+    def plain(pack):
+        return lambda v: plain_hybrid_spmm(pack, v)
+
+    a_fwd, a_bwd, b_fwd, b_bwd = plain(phi.fwd), plain(phi.bwd), plain(psi.fwd), plain(psi.bwd)
+    with torch.no_grad():
+        mask = (a_fwd(conv1.theta * b_fwd(x @ conv1.weight)) > 0).float()
+
+    def plain_forward():
+        h = a_fwd(conv1.theta * b_fwd(x @ conv1.weight)) * mask
+        return a_fwd(conv2.theta * b_fwd(h @ conv2.weight)), h
+
+    gh_p, gw_p, _ = grads(plain_forward)
+    check(bool(gw_k.abs().sum() > 0), "conv1's gradient through the kernel is zero")
+    with torch.no_grad():
+        w1, w2 = conv1.weight.abs(), conv2.weight.abs()
+        th1, th2 = conv1.theta.abs(), conv2.theta.abs()
+        k1, k2 = w2.shape
+        # magnitudes of the forward values (m_*) and the paths' differences (e_*)
+        m_u1 = b_fwd(x.abs() @ w1)
+        m_v1 = th1 * m_u1
+        m_p1 = a_fwd(m_v1)
+        m_z2 = (mask * m_p1) @ w2
+        m_u2 = b_fwd(m_z2)
+        m_v2 = th2 * m_u2
+        m_z = a_fwd(m_v2)
+        e_v1 = th1 * (2 * c_psi * u * m_u1) + 2 * u * m_v1
+        e_p1 = a_fwd(e_v1) + 2 * c_phi * u * m_p1
+        e_z2 = (mask * e_p1) @ w2 + 2 * k1 * u * m_z2
+        e_v2 = th2 * (b_fwd(e_z2) + 2 * c_psi * u * m_u2) + 2 * u * m_v2
+        e_z = a_fwd(e_v2) + 2 * c_phi * u * m_z
+        # the loss gradient at the logits and its difference
+        d = torch.zeros_like(z)
+        d[idx] = (torch.softmax(z[idx], 1) - F.one_hot(y, z.shape[1])).abs() / n_t
+        e_d = torch.zeros_like(z)
+        e_d[idx] = (0.5 * e_z[idx].amax(dim=1, keepdim=True) + 4 * u) / n_t
+        # backward: magnitudes (m_g*) and differences (e_g*)
+        m_gv2 = a_bwd(d)
+        e_gv2 = a_bwd(e_d) + 2 * c_phi * u * m_gv2
+        m_gu2 = th2 * m_gv2
+        e_gu2 = th2 * e_gv2 + 2 * u * m_gu2
+        m_gz2 = b_bwd(m_gu2)
+        e_gz2 = b_bwd(e_gu2) + 2 * c_psi * u * m_gz2
+        m_gh = m_gz2 @ w2.T
+        tol_h = e_gz2 @ w2.T + 2 * k2 * u * m_gh
+        m_gv1 = a_bwd(mask * m_gh)
+        e_gv1 = a_bwd(mask * tol_h) + 2 * c_phi * u * m_gv1
+        m_gu1 = th1 * m_gv1
+        e_gu1 = th1 * e_gv1 + 2 * u * m_gu1
+        m_gz1 = b_bwd(m_gu1)
+        e_gz1 = b_bwd(e_gu1) + 2 * c_psi * u * m_gz1
+        tol_w = x.abs().T @ e_gz1 + 2 * n * u * (x.abs().T @ m_gz1)
+        err_h = (gh_k - gh_p).abs()
+        err_w = (gw_k - gw_p).abs()
+    check(bool((err_h <= tol_h + 1e-30).all()),
+          f"wavelet gradient at conv1's output: kernel vs plain beyond the bound "
+          f"(max abs err {float(err_h.max())})")
+    check(bool((err_w <= tol_w + 1e-30).all()),
+          f"wavelet conv1 weight gradient: kernel vs plain beyond the bound "
+          f"(max abs err {float(err_w.max())})")
+    return {"step_launches": launches, "terms_c_phi": c_phi, "terms_c_phi_inv": c_psi,
+            "conv1_grad_abs_sum": float(gw_k.abs().sum()),
+            "conv1_out_grad_max_abs_err": float(err_h.max()),
+            "conv1_out_grad_err_over_bound_max": float((err_h / (tol_h + 1e-30)).max()),
+            "conv1_weight_grad_max_abs_err": float(err_w.max()),
+            "conv1_weight_grad_max_rel_err": float(err_w.max()) / float(gw_p.abs().max()),
+            "conv1_weight_grad_err_over_bound_max": float((err_w / (tol_w + 1e-30)).max())}
+
+
+def spectral_wavelet() -> dict:
+    """wavelet at PubMed's size (planetoid_like) with ``WaveletConfig`` and
+    ``ModelConfig`` defaults. ``prepare`` builds (Φ, Φ⁻¹) with 2 scales x
+    ceil(N / 1,024) impulse blocks x 3 Chebyshev orders ``ell_spmm``
+    launches at F = 1,024 on the Laplacian's hybrid pack, the seconds split
+    into the device recurrence and the host thresholding. 5 epochs: each
+    training epoch launches 8 (4 forward, 4 backward on the host-built packs
+    of Φᵀ and Φ⁻ᵀ), each evaluation 4, and the loss falls; then the
+    gradient check of :func:`wavelet_gradient_check` at seeded initial
+    weights, and ``GWNNTrainer`` at ``GWNNConfig`` defaults (5 epochs) fits
+    and scores. The kernel cases:
+    the Laplacian pack at F = 1,024, Φ at F = 256 (the hidden width) and
+    F = 3 (the classes), the Φᵀ backward pack at F = 256."""
+    import torch
+
+    from ssrg_torch.configs.config import ModelConfig, TrainingConfig
+    from ssrg_torch.data.synthetic import planetoid_like
+    from ssrg_torch.models import gwnn, wavelet
+    from ssrg_torch.ops.sparse import device_adjacency
+
+    ds = planetoid_like(**PUBMED)
+    n, classes = PUBMED["num_node"], PUBMED["num_classes"]
+    cfg = ModelConfig(model_name="wavelet")
+    wcfg = cfg.wavelet
+    blocks = -(-n // wcfg.impulse_batch)
+    construction = 2 * blocks * wcfg.approximation_order
+    built = Captured(wavelet, "calculate_wavelets")
+    try:
+        task, run, _ = train_run(ds, cfg, TrainingConfig(num_epochs=SPECTRAL_EPOCHS, lr=0.01),
+                                 num_classes=classes)
+    finally:
+        built.restore()
+    none = {name: 0 for name in KERNELS}
+    check(run["prepare_launches"] == {**none, "ell_spmm": construction},
+          f"wavelet prepare launched {run['prepare_launches']}, expected ell_spmm "
+          f"2 x {blocks} x {wcfg.approximation_order} = {construction}")
+    check(run["train_epoch_launches"] == [8] * SPECTRAL_EPOCHS
+          and run["eval_launches"] == [4] * SPECTRAL_EPOCHS,
+          f"wavelet epochs launched {run['train_epoch_launches']} (training) and "
+          f"{run['eval_launches']} (evaluation): expected 8 and 4 each")
+    falling(run["losses"], "wavelet")
+    phi_h, psi_h, stats = built.result
+    phi, psi = task.prepared.adj_device
+    rec = {"phase": "spectral", "run": "wavelet", "hidden": cfg.hidden_dim,
+           "classes": classes, "nodes": n, "features": PUBMED["num_features"],
+           "nnz": int(ds.adj.nnz), "impulse_batch": wcfg.impulse_batch, "blocks": blocks,
+           "order": wcfg.approximation_order, "scale": wcfg.scale,
+           "construction_launches": construction, "construction_s": built.seconds,
+           **{key: stats[key] for key in ("lmax", "phi_density", "phi_inv_density",
+                                          "recurrence_s", "threshold_s")},
+           "packs": {name: pack_stats(m) for name, m in
+                     (("phi", phi_h), ("phi_t", phi_h.T), ("phi_inv", psi_h),
+                      ("phi_inv_t", psi_h.T))},
+           **run}
+    # the check runs at seeded initial weights: after 5 epochs this
+    # separable task's loss, and so its gradient, is about 0
+    module = task.state.module.cpu()
+    module.reset_parameters(torch.Generator().manual_seed(SEED))
+    module.to("cuda")
+    rec.update(wavelet_gradient_check(task, phi_h, psi_h))
+    emit(rec)
+
+    gen = torch.Generator().manual_seed(SEED)
+    cases = {}
+    lap = device_adjacency(wavelet.combinatorial_laplacian(ds.adj).astype(np.float32),
+                           "hybrid", device="cuda")
+    for name, pack, f in (("laplacian_f1024", lap, wcfg.impulse_batch),
+                          ("phi_f256", phi.fwd, cfg.hidden_dim), ("phi_f3", phi.fwd, classes),
+                          ("phi_t_bwd_f256", phi.bwd, cfg.hidden_dim)):
+        x = torch.randn(n, f, generator=gen).to("cuda")
+        cases[name] = ell_case(name, pack.ell.cols, pack.ell.vals, x, timed=True,
+                               tail=pack.tail)
+        cases[name]["phase"] = "spectral"
+        emit(cases[name])
+        del x
+    del task, lap, phi, psi
+    torch.cuda.empty_cache()
+
+    gcfg = gwnn.GWNNConfig(epochs=SPECTRAL_EPOCHS)
+    reset_launches()
+    t0 = time.perf_counter()
+    sparsifier = gwnn.WaveletSparsifier(ds.adj, gcfg.scale, gcfg.approximation_order,
+                                        gcfg.tolerance, device="cuda")
+    sparsifier.calculate_all_wavelets()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    sparsifier_launches = read_launches()["ell_spmm"]
+    trainer = gwnn.GWNNTrainer(gcfg, sparsifier, ds.x, ds.y, device="cuda")
+    reset_launches()
+    t2 = time.perf_counter()
+    trainer.fit()
+    score = trainer.score()
+    torch.cuda.synchronize()
+    fit_launches = read_launches()["ell_spmm"]
+    check(sparsifier_launches == construction and fit_launches == 8 * SPECTRAL_EPOCHS + 4,
+          f"GWNN launched ell_spmm {sparsifier_launches} (sparsifier) and {fit_launches} "
+          f"(fit and score): expected {construction} and {8 * SPECTRAL_EPOCHS + 4}")
+    gwnn_losses = [entry["loss"] for entry in trainer.logs]
+    falling(gwnn_losses, "GWNN")
+    check(0.0 <= score <= 1.0, f"GWNN score {score}")
+    emit({"phase": "spectral", "run": "gwnn", "filters": gcfg.filters, "scale": gcfg.scale,
+          "epochs": gcfg.epochs, "sparsifier_s": t1 - t0,
+          "sparsifier_launches": sparsifier_launches,
+          "phi_density": sparsifier.stats["phi_density"],
+          "phi_inv_density": sparsifier.stats["phi_inv_density"],
+          "fit_and_score_s": time.perf_counter() - t2, "fit_and_score_launches": fit_launches,
+          "losses": gwnn_losses, "epoch_s": [entry["seconds"] for entry in trainer.logs],
+          "test_acc": score})
+    return {"construction": run["prepare_launches"]["ell_spmm"],
+            "train": sum(run["train_epoch_launches"]),
+            "eval": sum(run["eval_launches"]), "gwnn": sparsifier_launches + fit_launches,
+            "cases": cases}
+
+
+def phase_spectral() -> dict:
+    """The spectral and directed-operator slice: magnet and two_dir on the
+    directed graph at ogbn-arxiv's size, two_order at Cora's, wavelet and
+    GWNN at PubMed's. Returns the launches of each path and the timed
+    kernel cases."""
+    import torch
+
+    stage_s = {}
+    t0 = time.perf_counter()
+    ds = directed_dataset()
+    check(ds.adj.nnz == DIRECTED_EDGES and ds.adj.diagonal().sum() == 0,
+          f"directed graph: {ds.adj.nnz} edges")
+    stage_s["directed_data"] = time.perf_counter() - t0
+    emit({"phase": "spectral_data", "host_s": stage_s["directed_data"], "nodes": NUM_NODES,
+          "directed_edges": int(ds.adj.nnz),
+          "reciprocated_edges": int(ds.adj.multiply(ds.adj.T).nnz),
+          "split": [len(ds.train_idx), len(ds.val_idx), len(ds.test_idx)]})
+    cases = {}
+    t0 = time.perf_counter()
+    magnet = spectral_magnet(ds)
+    cases["magnet_imag_f128"] = magnet["case"]
+    stage_s["magnet"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    two_dir = spectral_two_dir(ds)
+    cases["two_dir_in_f128"] = two_dir["case"]
+    stage_s["two_dir"] = time.perf_counter() - t0
+    del ds
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    two_order = spectral_two_order()
+    stage_s["two_order"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    wav = spectral_wavelet()
+    cases.update(wav["cases"])
+    stage_s["wavelet_and_gwnn"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    emit({"phase": "spectral_stages", "seconds": stage_s})
+    return {"launches": {"magnet_prepare": magnet["prepare"],
+                         "two_dir_prepare": two_dir["prepare"],
+                         "two_order_prepare": two_order["prepare"],
+                         "wavelet_construction": wav["construction"],
+                         "wavelet_train_epochs": wav["train"],
+                         "wavelet_evaluations": wav["eval"], "gwnn": wav["gwnn"]},
+            "cases": cases}
+
+
 # --- the bench entry point -----------------------------------------------------
 
 # the bench's functions that each drive one tier, and the kernel each launches
@@ -1517,10 +2062,13 @@ def main() -> int:
     torch.cuda.empty_cache()
     train = phase_train(trace_root)
     torch.cuda.empty_cache()
+    spectral = phase_spectral()
+    torch.cuda.empty_cache()
     bench_run = phase_bench(os.path.join(trace_root, "bench_headline"))
     bench_launches = bench_run["launches"]
     # each path's launches, counted from 0 just before it and read just after
     by_path = {"ell_spmm": {"slice": launches["ell_spmm"], **train["launches"],
+                            **spectral["launches"],
                             "bench_headline": bench_launches["ell_spmm"]},
                "banded_spmm": {"banded_f32": launches["banded_spmm"],
                                "bench_banded": bench_launches["banded_spmm"]},
@@ -1540,6 +2088,11 @@ def main() -> int:
                                        "max_abs_err", "function_grad_max_abs_err",
                                        "function_fwd_bwd_ms")}
                                for case, rec in train["timed"].items()}}
+           if name == "ell_spmm" else {}),
+        **({"spectral_cases": {case: {k: rec[k] for k in
+                                      ("f", "width", "ms", "plain_ms", "bound_ms", "bound_by",
+                                       "library_ms", "max_abs_err")}
+                               for case, rec in spectral["cases"].items()}}
            if name == "ell_spmm" else {}),
         **({"bench_dense_case": {k: bench_run["dense"][k] for k in
                                  ("ms", "plain_ms", "bound_ms", "bound_by", "bound_share",

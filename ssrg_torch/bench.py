@@ -37,7 +37,7 @@ import scipy.sparse as sp
 import torch
 
 from ssrg_torch.logger import PhaseTimer, device_trace
-from ssrg_torch.utils import DeviceLike, resolve_device
+from ssrg_torch.utils import DeviceLike, resolve_device, synchronize
 
 # the reference's prebuilt C OpenMP CSR kernel (``libmatmul.so``), when this
 # environment variable names one
@@ -92,11 +92,6 @@ def _reference_kernel(adj: sp.csr_matrix, path: Optional[str] = None):
         return out.reshape(x.shape)
 
     return spmm
-
-
-def _sync(device: torch.device) -> None:
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
 
 
 def seeded_features(n: int, f: int, device: DeviceLike, seed: int = 0) -> torch.Tensor:
@@ -191,7 +186,7 @@ def device_edges_per_s(
             x_dev = torch.as_tensor(np.asarray(x, np.float32), device=dev)
         else:
             x_dev = seeded_features(adj.shape[1], int(num_features), dev)
-        _sync(dev)
+        synchronize(dev)
     f = int(x_dev.shape[1])
     total_hops = iters * prop_steps
     with timer.measure("first_exec"):
@@ -205,7 +200,7 @@ def device_edges_per_s(
     if trace_dir is not None:
         with device_trace(trace_dir, device=dev) as trace:
             _time_hops(adj_dev.spmm, x_dev, total_hops)
-            _sync(dev)
+            synchronize(dev)
         diag["trace"] = {"path": trace.path, "hops": total_hops,
                          "top_ops": trace.top_ops(5), **trace.busy_share()}
     del adj_dev
@@ -259,7 +254,7 @@ def clustered_tier_metrics(num_nodes: int, num_features: int, prop_steps: int, i
             perm = cluster_permutation(adj)
         adj_p, _, _, _ = apply_permutation(adj, perm)
         tiled = build_tiled(adj_p, device=dev, mem_budget_bytes=8 << 30, **kwargs).to(dev)
-        _sync(dev)
+        synchronize(dev)
     x = seeded_features(n_c, num_features, dev)
     rate, spread = _scan_hops_edges_per_s(tiled.spmm, x, adj.nnz, iters * prop_steps)
     return {"clustered_build_s": timer.phases["build"],

@@ -10,11 +10,17 @@ of the port's modules, whose submodules carry the flax names (``msg_op/jk``,
   ``[out, in]``;
 - a ``BatchNorm``'s ``scale`` becomes ``weight``, and its statistics
   ``mean``/``var`` (in ``batch_stats``) ``running_mean``/``running_var``;
-- ``bias``, ``slope``, ``hop_weight``, ``hop_node_weight`` and
-  ``subgraph_weight`` carry over as they are.
+- ``bias``, ``slope``, ``hop_weight``, ``hop_node_weight``,
+  ``subgraph_weight``, the complex layers' ``w_re``, ``w_im``, ``b_re`` and
+  ``b_im`` (``[in, out]`` in both packages) and the wavelet layer's
+  ``theta`` carry over as they are;
+- the wavelet layer's ``weight`` (``[in, out]`` in both packages) carries
+  over as it is, under the same name.
 
 ``params_to_jax`` is the inverse: it turns a state dict into the variables
-dict, so that the port writes checkpoints the reference reads.
+dict, so that the port writes checkpoints the reference reads. There a
+``weight`` is the wavelet layer's when its module also holds a ``theta``,
+else a Dense kernel (2-D, transposed) or a BatchNorm ``scale`` (1-D).
 """
 
 from __future__ import annotations
@@ -25,7 +31,11 @@ from typing import Dict
 import numpy as np
 import torch
 
-_VERBATIM = ("bias", "slope", "hop_weight", "hop_node_weight", "subgraph_weight")
+_VERBATIM = ("bias", "slope", "hop_weight", "hop_node_weight", "subgraph_weight",
+             "w_re", "w_im", "b_re", "b_im", "theta")
+# a module holding this parameter is a wavelet layer, whose ``weight`` is
+# flax's ``weight`` [in, out], not a Dense kernel
+_WAVELET_MARK = "theta"
 _STATS = {"mean": "running_mean", "var": "running_var"}
 
 
@@ -45,7 +55,7 @@ def _walk(node: Mapping, prefix: str, out: Dict[str, torch.Tensor], stats: bool)
             out[f"{prefix}weight"] = torch.tensor(arr.T)
         elif name == "scale":
             out[f"{prefix}weight"] = torch.tensor(arr)
-        elif name in _VERBATIM:
+        elif name in _VERBATIM or (name == "weight" and _WAVELET_MARK in node):
             out[f"{prefix}{name}"] = torch.tensor(arr)
         else:
             raise KeyError(f"no port mapping for flax parameter {prefix}{name}")
@@ -66,15 +76,20 @@ def params_from_jax(tree: Mapping) -> Dict[str, torch.Tensor]:
 def params_to_jax(state_dict: Mapping[str, torch.Tensor]) -> dict:
     """State dict -> flax variables dict ``{"params": tree}``, with
     ``"batch_stats"`` when the model holds BatchNorm statistics; leaves are
-    float32 numpy arrays. A 2-D ``weight`` is a Dense kernel (transposed), a
-    1-D one a BatchNorm ``scale``."""
+    float32 numpy arrays. A ``weight`` beside a ``theta`` is the wavelet
+    layer's (as it is); any other 2-D ``weight`` is a Dense kernel
+    (transposed), a 1-D one a BatchNorm ``scale``."""
     variables: dict = {"params": {}}
+    wavelet_layers = {key.rpartition(".")[0] for key in state_dict
+                      if key.rpartition(".")[2] == _WAVELET_MARK}
     for key, value in state_dict.items():
         *path, name = key.split(".")
         arr = value.detach().cpu().to(torch.float32).numpy()
         collection = "params"
         if name in ("running_mean", "running_var"):
             collection, name = "batch_stats", name.removeprefix("running_")
+        elif name == "weight" and ".".join(path) in wavelet_layers:
+            pass
         elif name == "weight":
             name, arr = ("kernel", arr.T) if arr.ndim == 2 else ("scale", arr)
         elif name not in _VERBATIM:

@@ -51,9 +51,12 @@ def symmetrize_edges(rows, cols, weights, num_nodes: int, clamp_unit: bool = Tru
 
 
 class Graph:
-    """In-memory graph with features and labels; ``.adj`` is the symmetric
-    scipy CSR adjacency, built lazily from the (possibly half-directed)
-    edge list. Unweighted ('..U') edge types clamp weights to 1."""
+    """In-memory graph with features and labels; ``.adj`` is the scipy CSR
+    adjacency, built lazily from the edge list: symmetric (both directions
+    of every edge summed) by default, or, with ``symmetrize=False``, the
+    directed edges as given (duplicates summed, self-loops dropped), which
+    the directed operators (magnetic, two_dir, two_order) need. Unweighted
+    ('..U') edge types clamp weights to 1."""
 
     def __init__(
         self,
@@ -66,6 +69,7 @@ class Graph:
         edge_mask: Optional[np.ndarray] = None,
         x: Optional[np.ndarray] = None,
         y: Optional[np.ndarray] = None,
+        symmetrize: bool = True,
     ):
         self.edge = Edge(row, col, edge_weight, edge_type)
         self.edge_type = edge_type
@@ -74,6 +78,7 @@ class Graph:
         self.edge_mask = edge_mask
         self.x = None if x is None else np.asarray(x, dtype=np.float32)
         self.y = None if y is None else np.asarray(y, dtype=np.int64).reshape(-1)
+        self._symmetrize = symmetrize
         self._adj: Optional[sp.csr_matrix] = None
 
     @property
@@ -81,8 +86,16 @@ class Graph:
         if self._adj is None:
             n = self.num_node
             r, c, w = self.edge.row, self.edge.col, self.edge.edge_weight
-            self._adj = symmetrize_edges(r, c, w, n,
-                                         clamp_unit=self.edge_type.endswith("U"))
+            clamp = self.edge_type.endswith("U")
+            if self._symmetrize:
+                self._adj = symmetrize_edges(r, c, w, n, clamp_unit=clamp)
+            else:
+                adj = sp.coo_matrix((w, (r, c)), shape=(n, n)).tocsr()
+                if clamp:
+                    adj.data[:] = np.minimum(adj.data, 1.0)
+                adj.setdiag(0)
+                adj.eliminate_zeros()
+                self._adj = adj
         return self._adj
 
     @adj.setter

@@ -10,11 +10,15 @@ models as {graph op, message op, head} compositions.
 | gamlp | sym      | learnable_weighted ("jk")     | MLP    |
 | nafs  | sym      | over_smooth_dis_weighted      | LogReg |
 | gcn   | naive sym (in the head) | —                      | 2-layer GCN |
+| wavelet | spectral (Φ, Φ⁻¹)      | —                      | 2-layer GWNN |
+| magnet | magnetic (complex)     | last (re, im)                 | ComMLP |
+| two_dir | two_dir (un/in/out)   | last of each, concatenated    | MLP    |
+| two_order | two_order (pair)    | last of each, concatenated    | MLP    |
 | clean_train | — (featureless)   | —                      | FeatureAugment2MLP |
 
-The other models of the reference (wavelet, magnet, two_dir, two_order)
-and graph ops other than ``sym`` raise ``NotImplementedError`` naming the
-ROADMAP.md item that ports them.
+``GRAPH_OPS`` names every construction of :mod:`ssrg_torch.ops.normalize`
+(sym, ppr, magnetic, magnetic_ppr, two_dir, fast_ppr, two_order), so a
+custom composition can use any of them.
 """
 
 from __future__ import annotations
@@ -27,12 +31,14 @@ import torch
 from torch import nn
 
 from ssrg_torch.configs.config import ModelConfig
+from ssrg_torch.models.complex_heads import ComMLP
 from ssrg_torch.models.heads import (
     FeatureAugment2MLP,
     Layer2GraphConvolution,
     LogisticRegression,
     MultiLayerPerceptron,
 )
+from ssrg_torch.models.wavelet import Wavelet2NeuralNetwork
 from ssrg_torch.ops import normalize
 from ssrg_torch.ops.combine import (
     LEARNABLE_AGGR_TYPES,
@@ -40,24 +46,30 @@ from ssrg_torch.ops.combine import (
     make_message_op,
 )
 
-SPECTRAL_SLICE = "ROADMAP.md queue, spectral / complex models"
-
+# graph op name -> (adj, cfg) -> CSR or tuple of CSR
 GRAPH_OPS: Dict[str, Callable[[sp.spmatrix, ModelConfig], Any]] = {
     "sym": lambda adj, cfg: normalize.sym_norm(adj, cfg.r),
+    "ppr": lambda adj, cfg: normalize.ppr_norm(adj, cfg.r, 0.15),
+    "magnetic": lambda adj, cfg: normalize.magnetic_norm(adj, cfg.r, cfg.q),
+    "magnetic_ppr": lambda adj, cfg: normalize.magnetic_com_ppr_norm(adj, cfg.r, cfg.q, 0.15),
+    "two_dir": lambda adj, cfg: normalize.un_in_out_norm(adj, cfg.r),
+    "fast_ppr": lambda adj, cfg: normalize.fast_ppr_approx_norm(adj, cfg.r, cfg.ppr_alpha),
+    "two_order": lambda adj, cfg: normalize.two_order_ppr_approx_norm(
+        adj, cfg.r, cfg.ppr_alpha),
 }
-_UNPORTED_GRAPH_OPS = {
-    "ppr": SPECTRAL_SLICE, "magnetic": SPECTRAL_SLICE,
-    "magnetic_ppr": SPECTRAL_SLICE, "two_dir": SPECTRAL_SLICE,
-    "fast_ppr": SPECTRAL_SLICE, "two_order": SPECTRAL_SLICE,
-}
+# the graph ops that give a tuple of adjacencies: (real, imag) for the
+# complex propagation, or the hop-stack lists of propagate_multi
+MULTI_ADJACENCY_GRAPH_OPS = ("magnetic", "magnetic_ppr", "two_dir", "two_order")
+COMPLEX_GRAPH_OPS = ("magnetic", "magnetic_ppr")
 
 
 class PrecomputeModel(nn.Module):
     """The trainable part of a precompute model: an optional in-forward
     message op, then the head. ``inputs`` is ``[n, D]`` when aggregation
     happened at precompute time, or the hop stack ``[K+1, n, F]`` when the
-    message op is learnable. A naive model's head also takes the device
-    adjacency ``adj``."""
+    message op is learnable, or the ``(re, im)`` pair of a complex model. A
+    naive model's head also takes the device adjacency ``adj``, a spectral
+    model's the pair ``(Φ, Φ⁻¹)``."""
 
     def __init__(self, msg_op: Optional[nn.Module] = None, head: nn.Module = None):
         super().__init__()
@@ -94,9 +106,6 @@ class ModelSpec:
         return self.aggr_type in LEARNABLE_AGGR_TYPES
 
     def construct_adj(self, adj: sp.spmatrix, cfg: ModelConfig):
-        if self.graph_op in _UNPORTED_GRAPH_OPS:
-            raise NotImplementedError(f"graph op {self.graph_op!r} is not ported "
-                                      f"yet: {_UNPORTED_GRAPH_OPS[self.graph_op]}")
         return GRAPH_OPS[self.graph_op](adj, cfg)
 
 
@@ -182,11 +191,40 @@ def make_clean_train(cfg: ModelConfig, feat_dim: int, output_dim: int) -> ModelS
     )
 
 
-def _unported(name: str, where: str):
-    def ctor(cfg: ModelConfig, feat_dim: int, output_dim: int) -> ModelSpec:
-        raise NotImplementedError(f"model {name!r} is not ported yet: {where}")
+def make_wavelet(cfg: ModelConfig, feat_dim: int, output_dim: int) -> ModelSpec:
+    """Graph-wavelet GWNN: the spectral precompute builds (Φ, Φ⁻¹), which
+    ride into the head; ``prepare`` sizes θ to the graph."""
+    return ModelSpec(
+        name="wavelet", graph_op=None, spectral=True, prop_steps=cfg.prop_steps,
+        module=PrecomputeModel(head=Wavelet2NeuralNetwork(
+            feat_dim, cfg.hidden_dim, output_dim, dropout=cfg.dropout)),
+    )
 
-    return ctor
+
+def make_magnet(cfg: ModelConfig, feat_dim: int, output_dim: int) -> ModelSpec:
+    """Magnetic-Laplacian model: complex propagation, then the complex MLP
+    with the magnitude readout on the last (re, im) hop."""
+    return ModelSpec(
+        name="magnet", graph_op="magnetic", prop_steps=cfg.prop_steps,
+        module=PrecomputeModel(head=ComMLP(feat_dim, cfg.hidden_dim, output_dim,
+                                           num_layers=cfg.num_layers, dropout=cfg.dropout)),
+    )
+
+
+def make_two_dir(cfg: ModelConfig, feat_dim: int, output_dim: int) -> ModelSpec:
+    """Directed two-direction model: un/in/out triple propagation, the last
+    hop of each concatenated into an MLP."""
+    return ModelSpec(name="two_dir", graph_op="two_dir", aggr_type="last",
+                     prop_steps=cfg.prop_steps,
+                     module=PrecomputeModel(head=_mlp(cfg, 3 * feat_dim, output_dim)))
+
+
+def make_two_order(cfg: ModelConfig, feat_dim: int, output_dim: int) -> ModelSpec:
+    """Two-order PPR-approximation model: first/second-order pair
+    propagation, the last hops concatenated into an MLP."""
+    return ModelSpec(name="two_order", graph_op="two_order", aggr_type="last",
+                     prop_steps=cfg.prop_steps,
+                     module=PrecomputeModel(head=_mlp(cfg, 2 * feat_dim, output_dim)))
 
 
 MODEL_REGISTRY: Dict[str, Callable[[ModelConfig, int, int], ModelSpec]] = {
@@ -198,10 +236,10 @@ MODEL_REGISTRY: Dict[str, Callable[[ModelConfig, int, int], ModelSpec]] = {
     "nafs": make_nafs,
     "gcn": make_gcn,
     "clean_train": make_clean_train,
-    "wavelet": _unported("wavelet", SPECTRAL_SLICE),
-    "magnet": _unported("magnet", SPECTRAL_SLICE),
-    "two_dir": _unported("two_dir", SPECTRAL_SLICE),
-    "two_order": _unported("two_order", SPECTRAL_SLICE),
+    "wavelet": make_wavelet,
+    "magnet": make_magnet,
+    "two_dir": make_two_dir,
+    "two_order": make_two_order,
 }
 
 

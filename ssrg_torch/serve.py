@@ -31,7 +31,9 @@ class Predictor:
     Without ``params`` or ``checkpoint_path`` the model keeps its own
     initialization. A model with BatchNorm needs a checkpoint that holds its
     statistics (``ValueError`` otherwise, as in the reference). A naive
-    model (GCN) runs on the whole graph and selects the asked rows."""
+    model (GCN) or a spectral one (wavelet, on (Φ, Φ⁻¹)) runs on the whole
+    graph and selects the asked rows; a complex model (magnet) takes the
+    rows of its ``(re, im)`` pair."""
 
     def __init__(
         self,
@@ -52,7 +54,8 @@ class Predictor:
             self.metadata = load_checkpoint(self.module, checkpoint_path)
         if params is not None:
             self.module.load_state_dict(params, strict=True)
-        self.num_nodes = int(self.prepared.inputs.shape[-2])
+        inputs = self.prepared.inputs
+        self.num_nodes = int((inputs[0] if isinstance(inputs, tuple) else inputs).shape[-2])
 
     @torch.no_grad()
     def logits(self, node_ids) -> torch.Tensor:

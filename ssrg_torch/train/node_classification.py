@@ -8,7 +8,13 @@ label-propagation clusters), propagate on the dense-block engine and put
 the hops back in the original node order; ``autotune`` times the engines
 and takes the fastest. The naive GCN keeps the normalized adjacency on the
 device instead (``Prepared.adj_device``, differentiable through the ELL
-kernel), and the featureless ``clean_train`` model takes the raw features.
+kernel), the wavelet model the pair (Φ, Φ⁻¹) (``spectral``), and the
+featureless ``clean_train`` model takes the raw features. A graph op that
+gives a tuple of adjacencies propagates each: the magnetic ops as complex
+numbers, whose last hop is the ``(re, im)`` input of the complex heads;
+two_dir and two_order as separate stacks, whose last hops are concatenated.
+The meta-engines fall back to ``auto`` (with a warning) on every path but
+the hop precompute.
 
 ``NodeClassification`` trains with the reference's protocol: best-val
 selects the reported test accuracy, ``normalize_times`` runs each
@@ -34,9 +40,9 @@ from ssrg_torch.configs.config import ModelConfig, TrainingConfig
 from ssrg_torch.convert import params_from_jax, params_to_jax
 from ssrg_torch.models.heads import BatchNorm
 from ssrg_torch.models.zoo import (
-    _UNPORTED_GRAPH_OPS,
+    COMPLEX_GRAPH_OPS,
     GRAPH_OPS,
-    SPECTRAL_SLICE,
+    MULTI_ADJACENCY_GRAPH_OPS,
     ModelSpec,
     PrecomputeModel,
 )
@@ -48,7 +54,7 @@ from ssrg_torch.train.common import (
     seed_everything,
     train_step,
 )
-from ssrg_torch.utils import DeviceLike, resolve_device
+from ssrg_torch.utils import DeviceLike, resolve_device, synchronize
 
 log = logging.getLogger("ssrg_torch")
 
@@ -58,18 +64,13 @@ class Prepared:
     """Result of the precompute phase."""
 
     module: PrecomputeModel
-    inputs: torch.Tensor        # [N, D], or the hop stack [K+1, N, F]
+    inputs: Any                 # [N, D], the hop stack [K+1, N, F] or (re, im)
     hops_layout: bool           # True when inputs is the hop stack
-    adj_device: Any = None      # the naive GCN's device adjacency
+    adj_device: Any = None      # the naive GCN's device adjacency, or (Φ, Φ⁻¹)
     preprocess_seconds: float = 0.0
     # the basic engine name, with the meta-engines resolved ("auto" for
     # reorder_*): what a consumer that packs the adjacency again must use
     engine: str = "auto"
-
-
-def _sync(device: torch.device) -> None:
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
 
 
 def _reorder_propagate(engine: str, spec: ModelSpec, adj_norm, x: np.ndarray,
@@ -115,8 +116,6 @@ def prepare(
             f"{type(spec).__name__}; did you pass the ModelConfig instead?"
         )
     dev = resolve_device(device)
-    if spec.spectral:
-        raise NotImplementedError(f"the spectral path: {SPECTRAL_SLICE}")
     t0 = time.perf_counter()
     x = np.asarray(dataset.x)
     engine = training_cfg.spmm_engine
@@ -127,18 +126,30 @@ def prepare(
     is_meta = engine in ("reorder_banded", "reorder_tiled")
     basic_engine = "auto" if is_meta else engine
 
-    def raw_features(path: str, adj_device=None) -> Prepared:
+    def warn_meta(path: str) -> None:
         # the reorder meta-engines apply to the hop precompute only
         if is_meta:
             log.warning(
                 "spmm_engine=%s only applies to hop-precompute models; the %s path "
                 "for model %r uses engine='auto' instead", engine, path, model_cfg.model_name,
             )
-        inputs = torch.as_tensor(x, dtype=torch.float32, device=dev)
-        _sync(dev)
-        return Prepared(spec.module, inputs, False, adj_device=adj_device,
+
+    def done(inputs, module=spec.module, hops_layout=False, adj_device=None) -> Prepared:
+        synchronize(dev)
+        return Prepared(module, inputs, hops_layout, adj_device=adj_device,
                         preprocess_seconds=time.perf_counter() - t0, engine=basic_engine)
 
+    def raw_features(path: str, adj_device=None) -> Prepared:
+        warn_meta(path)
+        return done(torch.as_tensor(x, dtype=torch.float32, device=dev), adj_device=adj_device)
+
+    if spec.spectral:
+        from ssrg_torch.models.wavelet import prepare_spectral
+
+        spec.module.head.set_num_nodes(dataset.num_node)
+        phi, phi_inv = prepare_spectral(dataset.adj, model_cfg.wavelet, engine=basic_engine,
+                                        device=dev)
+        return raw_features("spectral", (phi, phi_inv))
     if spec.naive:
         from ssrg_torch.ops.sparse import differentiable_adjacency
 
@@ -149,6 +160,17 @@ def prepare(
         return raw_features("featureless")
 
     adj_norm = spec.construct_adj(dataset.adj, model_cfg)
+    if isinstance(adj_norm, tuple):
+        from ssrg_torch.ops.propagate import propagate_complex, propagate_multi
+        from ssrg_torch.ops.sparse import device_adjacency
+
+        warn_meta("tuple-adjacency")
+        devs = tuple(device_adjacency(a, basic_engine, device=dev) for a in adj_norm)
+        if spec.graph_op in COMPLEX_GRAPH_OPS:
+            re_hops, im_hops = propagate_complex(*devs, x, spec.prop_steps, device=dev)
+            return done((re_hops[-1], im_hops[-1]))
+        stacks = propagate_multi(devs, x, spec.prop_steps, device=dev)
+        return done(torch.cat([h[-1] for h in stacks], dim=-1))
     if is_meta:
         hops = _reorder_propagate(engine, spec, adj_norm, x, model_cfg, training_cfg, dev)
     else:
@@ -157,9 +179,7 @@ def prepare(
             tag=f"{spec.graph_op}:{model_cfg.r}", device=dev,
         )
     if spec.pre_msg_learnable:
-        _sync(dev)
-        return Prepared(spec.module, hops, True,
-                        preprocess_seconds=time.perf_counter() - t0, engine=basic_engine)
+        return done(hops, hops_layout=True)
 
     # aggregate now, once
     msg = spec.module.msg_op
@@ -169,14 +189,15 @@ def prepare(
         module = PrecomputeModel(msg_op=None, head=spec.module.head)
     else:
         aggregated, module = hops[-1], spec.module
-    _sync(dev)
-    return Prepared(module, aggregated, False,
-                    preprocess_seconds=time.perf_counter() - t0, engine=basic_engine)
+    return done(aggregated, module=module)
 
 
-def slice_inputs(prepared: Prepared, idx: torch.Tensor) -> torch.Tensor:
-    """The rows of ``prepared.inputs`` for node ids ``idx``, for either
-    layout (hop stack ``[K+1, N, F]`` or aggregated ``[N, D]``)."""
+def slice_inputs(prepared: Prepared, idx: torch.Tensor):
+    """The rows of ``prepared.inputs`` for node ids ``idx``, for each
+    layout: the complex ``(re, im)`` pair, the hop stack ``[K+1, N, F]``, or
+    aggregated ``[N, D]``."""
+    if isinstance(prepared.inputs, tuple):
+        return tuple(part[idx] for part in prepared.inputs)
     if prepared.hops_layout:
         return prepared.inputs[:, idx]
     return prepared.inputs[idx]
@@ -236,9 +257,9 @@ class NodeClassification:
         run: bool = True,
         device: DeviceLike = "cuda",
     ):
-        if post_graph_op in _UNPORTED_GRAPH_OPS:
-            raise NotImplementedError(f"post graph op {post_graph_op!r} is not ported yet: "
-                                      f"{_UNPORTED_GRAPH_OPS[post_graph_op]}")
+        if post_graph_op in MULTI_ADJACENCY_GRAPH_OPS:
+            raise ValueError(f"post graph op {post_graph_op!r} gives a tuple of adjacencies; "
+                             "label propagation needs one (sym, ppr or fast_ppr)")
         self.device = resolve_device(device)
         self.dataset = dataset
         self.spec = spec
@@ -298,7 +319,8 @@ class NodeClassification:
     @torch.no_grad()
     def logits(self, state: TrainState, idx=None) -> torch.Tensor:
         """Evaluation-mode logits of node ids ``idx`` (all nodes when None);
-        a full-graph model runs on the whole graph and then selects."""
+        a full-graph model (naive or spectral) runs on the whole graph and
+        then selects."""
         p = self.prepared
         module = state.module.eval()
         if self.full_graph:
@@ -324,7 +346,7 @@ class NodeClassification:
 
     def evaluate(self, state: TrainState) -> Tuple[torch.Tensor, torch.Tensor]:
         """Validation and test accuracy, as device scalars: one full-graph
-        forward for a naive model, batched when ``eval_batch_size`` is set,
+        forward for a naive or spectral model, batched when ``eval_batch_size`` is set,
         else one forward per split."""
         bs = self.cfg.eval_batch_size
         splits = [self._split["val"], self._split["test"]]

@@ -70,3 +70,10 @@ def resolve_device(device: DeviceLike = "cuda") -> torch.device:
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {dev}; use 'cuda' or 'cpu'")
     return dev
+
+
+def synchronize(device: torch.device) -> None:
+    """Wait for the work queued on ``device`` (nothing to wait for on the
+    CPU)."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)

@@ -41,6 +41,9 @@ ELL_CASES = [  # (rows, n, width, f, empty_fraction[, kind])
     (90, 200, 33, 130, 0.1, "holes"),      # F = 130: scalar loads, several tiles
     (70, 120, 20, 300, 0.1, "holes"),      # F = 300, a ragged last tile
     (99, 60, 9, 48, 0.1, "misaligned"),    # x 4 bytes off 16-byte alignment
+    (120, 90, 11, 3, 0.1, "holes"),        # F = 3, a class count: scalar lanes only
+    (130, 150, 9, 1024, 0.1, "holes"),     # F = 1,024, the Chebyshev impulse block
+    (200, 160, 12, 128, 0.0, "stored_zeros"),  # zero weights on real columns, signed
 ]
 
 
@@ -59,7 +62,10 @@ def _ell_case(rows, n, width, f, empty, kind=None, seed=0):
     """``kind="holes"`` zeroes a third of the slots and pads each row's end
     with column 0 and weight 0, as the packer does; ``"all_zero"`` zeroes
     every slot; ``"full"`` keeps every slot nonzero; ``"misaligned"`` is
-    ``"holes"`` with an x that :func:`_ell_tensors` places off alignment."""
+    ``"holes"`` with an x that :func:`_ell_tensors` places off alignment;
+    ``"stored_zeros"`` zeroes a third of the weights and keeps their columns
+    and every row's full width, as the magnetic imaginary part stores
+    ``sin(0) = 0`` on reciprocal edges and self-loops."""
     rng = np.random.default_rng(seed)
     cols = rng.integers(0, n, (rows, width)).astype(np.int32)
     vals = rng.normal(size=(rows, width)).astype(np.float32)
@@ -67,6 +73,8 @@ def _ell_case(rows, n, width, f, empty, kind=None, seed=0):
         vals = rng.uniform(0.1, 1.0, size=(rows, width)).astype(np.float32)
     elif kind == "all_zero":
         vals[:] = 0.0
+    elif kind == "stored_zeros":
+        vals[rng.uniform(size=(rows, width)) < 1 / 3] = 0.0
     elif kind in ("holes", "misaligned"):
         vals[rng.uniform(size=(rows, width)) < 1 / 3] = 0.0
         pad = np.arange(width)[None, :] >= rng.integers(0, width + 1, rows)[:, None]
@@ -398,6 +406,56 @@ def test_hybrid_function_gradient_plain(r, f):
 @pytest.mark.parametrize("f", [40, 256])
 def test_hybrid_function_gradient_kernel(cuda_device, r, f):
     _hybrid_grad_check(r, f, cuda_device)
+
+
+def _phi_grad_check(f, device):
+    """The wavelet basis Φ of a 600-node SBM (thresholded heat kernel, rows
+    L1-normalized: positive, not symmetric, rows of many lengths) under
+    autograd through the hybrid engine: the backward runs on the host-built
+    pack of Φ^T. x's gradient against float64 ``Φ^T g`` (1e-5) and against
+    autograd through ``ell_spmm_plain`` and the tail's ``index_add``, within
+    ``2 (c + 1) u (Φ^T |g|)``, c the most nonzeros of a row or column."""
+    from ssrg_torch.configs.config import WaveletConfig
+    from ssrg_torch.data.synthetic import sbm_graph
+    from ssrg_torch.models.wavelet import calculate_wavelets
+
+    adj = sbm_graph(600, 3, 4, p_in=0.02, p_out=0.002, seed=3).adj
+    phi = calculate_wavelets(adj, WaveletConfig(), "dense", verbose=False, device="cpu")[0]
+    assert (phi != phi.T).nnz > 0 and (phi.data > 0).all()
+    dadj = sparse.differentiable_adjacency(phi, "hybrid", device=device)
+    assert not dadj.symmetric and int((dadj.fwd.tail.val != 0).sum()) > 0
+    rng = np.random.default_rng(4)
+    x0 = torch.from_numpy(rng.normal(size=(600, f)).astype(np.float32)).to(device)
+    g = torch.from_numpy(rng.normal(size=(600, f)).astype(np.float32)).to(device)
+    x = x0.clone().requires_grad_()
+    before = ell_spmm.launches
+    dadj.spmm(x).backward(g)
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+        assert ell_spmm.launches == before + 2
+    dense = phi.toarray().astype(np.float64)
+    np.testing.assert_allclose(x.grad.cpu().numpy(), dense.T @ g.cpu().numpy(), rtol=1e-5,
+                               atol=1e-5)
+    x_plain = x0.clone().requires_grad_()
+    fwd, tail = dadj.fwd.ell, dadj.fwd.tail
+    out = ell_spmm_plain(fwd.cols, fwd.vals, x_plain)[:600]
+    out.index_add(0, tail.row, x_plain.index_select(0, tail.col) * tail.val[:, None]).backward(g)
+    counts = max(np.diff(phi.indptr).max(), np.diff(phi.tocsc().indptr).max())
+    mag = torch.from_numpy((dense.T @ np.abs(g.cpu().numpy())).astype(np.float32)).to(device)
+    diff = (x.grad - x_plain.grad).abs()
+    assert bool((diff <= 2.0 * (counts + 1) * UNIT_ROUNDOFF * mag + 1e-30).all()), \
+        float(diff.max())
+
+
+@pytest.mark.parametrize("f", [3, 256])
+def test_phi_function_gradient_plain(f):
+    _phi_grad_check(f, torch.device("cpu"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("f", [3, 256])
+def test_phi_function_gradient_kernel(cuda_device, f):
+    _phi_grad_check(f, cuda_device)
 
 
 def test_kernels_refuse_to_run_under_autograd():

@@ -26,6 +26,7 @@ from ssrg_torch.data.synthetic import planetoid_like
 from ssrg_torch.models import heads
 from ssrg_torch.models.zoo import MODEL_REGISTRY, ModelSpec, load_model
 from ssrg_torch.ops import combine
+from ssrg_torch.ops.sparse import DenseAdj
 from ssrg_torch.serve import Predictor
 from ssrg_torch.train.node_classification import prepare
 
@@ -185,16 +186,31 @@ def test_predictor_rejects_out_of_range_ids(datasets):
 
 
 def test_unported_paths_raise(datasets):
+    """Every registry model builds and every graph op runs through
+    ``prepare``; what is still unported (the ``query_edges`` link scorer,
+    the bench's sharded tier) raises ``NotImplementedError`` naming its
+    ROADMAP item; a config passed for a spec is a ``TypeError``."""
+    from ssrg_torch import bench
+    from ssrg_torch.models.zoo import GRAPH_OPS
+
     _, ds = datasets
-    for name in ("wavelet", "magnet", "two_dir", "two_order"):
-        assert name in MODEL_REGISTRY
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            load_model(ModelConfig(model_name=name), 48, 4)
+    assert len(MODEL_REGISTRY) == 12 and len(GRAPH_OPS) == 7
+    for name in MODEL_REGISTRY:
+        spec = load_model(ModelConfig(model_name=name, hidden_dim=8), 48, 4)
+        assert spec.name == name
     spec = load_model(ModelConfig(model_name="sgc"), 48, 4)
-    for flags in (dict(spectral=True), dict(graph_op="magnetic")):
-        other = ModelSpec(**{**dict(name="x", graph_op="sym", module=spec.module), **flags})
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            prepare(other, ds, ModelConfig(), TrainingConfig(), device=CPU)
+    for op in GRAPH_OPS:
+        other = ModelSpec(name="x", graph_op=op, module=spec.module, prop_steps=2)
+        inputs = prepare(other, ds, ModelConfig(), TrainingConfig(), device=CPU).inputs
+        for part in inputs if isinstance(inputs, tuple) else (inputs,):
+            assert part.shape[-2] == 800 and bool(torch.isfinite(part).all()), op
+    wavelet = load_model(ModelConfig(model_name="wavelet", hidden_dim=8), 48, 4).module.head
+    wavelet.set_num_nodes(3)
+    eye = DenseAdj(torch.eye(3))
+    with pytest.raises(NotImplementedError, match="Link / augmentation"):
+        wavelet(torch.ones(3, 48), (eye, eye), query_edges=torch.zeros(1, 2, dtype=torch.long))
+    with pytest.raises(NotImplementedError, match="ROADMAP.md section 1"):
+        bench.sharded_tier_metrics(None, 4, 2)
     with pytest.raises(TypeError):
         prepare(ModelConfig(), ds, ModelConfig(), TrainingConfig(), device=CPU)
 

@@ -557,9 +557,13 @@ def test_postprocess_matches_reference(datasets):
     got = task._postprocess(state)
     np.testing.assert_allclose(got, want, atol=1e-4)
     assert _sgc_task(ds, num_epochs=40, seed=7).best_test > 0.7
-    with pytest.raises(NotImplementedError, match="spectral"):
+    # the other single-adjacency post graph ops run; a tuple-valued one is refused
+    ppr = NodeClassification(ds, load_model(cfg, NUM_FEATURES, NUM_CLASSES), cfg,
+                             TrainingConfig(), post_graph_op="ppr", run=False, device=CPU)
+    assert all(0.0 <= a <= 1.0 for a in ppr._postprocess(state))
+    with pytest.raises(ValueError, match="tuple of adjacencies"):
         NodeClassification(ds, load_model(cfg, NUM_FEATURES, NUM_CLASSES), cfg,
-                           TrainingConfig(), post_graph_op="ppr", run=False, device=CPU)
+                           TrainingConfig(), post_graph_op="magnetic", run=False, device=CPU)
 
 
 # --- checkpoints -----------------------------------------------------------------
