@@ -12,14 +12,19 @@ the model zoo's precompute models and naive GCN, training
 (:class:`ssrg_torch.train.NodeClassification`, with the ELL kernel under
 autograd for the GCN), checkpoints and :class:`ssrg_torch.serve.Predictor`,
 the host graph builders on an OpenMP C++ library (:mod:`ssrg_torch.native`,
-``csrc/graphbuild.cpp``), the K-hop bench (:mod:`ssrg_torch.bench`) and the
-logger with its ``torch.profiler`` trace (:mod:`ssrg_torch.logger`).
+``csrc/graphbuild.cpp``), the K-hop bench (:mod:`ssrg_torch.bench`), the
+logger with its ``torch.profiler`` trace (:mod:`ssrg_torch.logger`), the
+dataset loaders (:mod:`ssrg_torch.data`), the robustness pipeline
+(:mod:`ssrg_torch.pipelines`: sparsify, then repair features and edges)
+and link classification (:class:`ssrg_torch.train.LinkClassification`).
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
 """
 
 __version__ = "0.1.0"
 
 from ssrg_torch.configs.config import (  # noqa: F401
+    DataConfig,
+    FrameworkConfig,
     ModelConfig,
     TrainingConfig,
     WaveletConfig,

@@ -15,7 +15,10 @@ of the port's modules, whose submodules carry the flax names (``msg_op/jk``,
   ``b_im`` (``[in, out]`` in both packages) and the wavelet layer's
   ``theta`` carry over as they are;
 - the wavelet layer's ``weight`` (``[in, out]`` in both packages) carries
-  over as it is, under the same name.
+  over as it is, under the same name;
+- a link head's tree (``edge_fc``, and the GCN's ``fc2_edge``, both
+  ``Dense``) carries over as any other: the port's link heads
+  (``load_model(..., link=True)``) hold the same submodules.
 
 ``params_to_jax`` is the inverse: it turns a state dict into the variables
 dict, so that the port writes checkpoints the reference reads. There a

@@ -1,4 +1,5 @@
 from ssrg_torch.data.graph import Edge, Graph  # noqa: F401
+from ssrg_torch.data.base_dataset import NodeDataset  # noqa: F401
 from ssrg_torch.data.synthetic import (  # noqa: F401
     InMemoryDataset,
     community_graph,

@@ -11,6 +11,19 @@ the three ``OneDimConvolution`` hop combiners and the augmentation encoder
 :mod:`ssrg_torch.convert` carries parameters both ways. flax infers input
 widths at the first call; these modules take them at construction.
 
+Link heads. Built with ``link=True``, a head scores ``query_edges``
+(``[B, 2]`` node ids) instead of nodes: the pair's endpoint
+representations are joined and projected by ``edge_fc``. As in the
+reference, the parameters depend on it: the logistic regression keeps
+``fc`` and adds ``edge_fc``; the MLP and the residual MLP have ``edge_fc``
+in place of ``fc_out``; the GCN has ``fc2_edge`` (hidden to hidden, before
+its second SpMM) and ``edge_fc`` in place of ``fc2``. The logistic
+regression and the MLP join the pair by ``edge_mode`` (``concat``, or
+``hadamard``: ``[a, b, a * b, |a - b|]``) and the MLP drops out the joined
+features once more; the residual MLP and the GCN always concatenate. A
+link head called without ``query_edges``, or a node head with them,
+raises ``ValueError``.
+
 Training behaviour follows flax, not torch's own layers:
 
 - :class:`Dropout` draws its mask from an explicit ``torch.Generator``
@@ -19,8 +32,6 @@ Training behaviour follows flax, not torch's own layers:
 - :class:`BatchNorm` is flax's ``nn.BatchNorm``: momentum 0.99, epsilon
   1e-5, batch variance ``E[x^2] - E[x]^2`` (biased) both for normalizing
   and for the running variance, statistics in float32.
-
-The ``query_edges`` link scorer comes with the link slice (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -127,6 +138,40 @@ class BatchNorm(nn.Module):
         return y.to(x.dtype)
 
 
+EDGE_WIDTHS = {"concat": 2, "hadamard": 4}  # pair features per endpoint feature
+
+
+def edge_width(width: int, mode: str = "concat") -> int:
+    """The width of the pair features of ``width``-wide endpoints."""
+    if mode not in EDGE_WIDTHS:
+        raise ValueError(f"unknown edge feature mode {mode!r}")
+    return EDGE_WIDTHS[mode] * width
+
+
+def _edge_features(x: torch.Tensor, query_edges: torch.Tensor,
+                   mode: str = "concat") -> torch.Tensor:
+    """``[B, 2]`` endpoint pairs -> pair features: ``[a, b]`` (``concat``)
+    or ``[a, b, a * b, |a - b|]`` (``hadamard``)."""
+    a, b = x[query_edges[:, 0]], x[query_edges[:, 1]]
+    if mode == "concat":
+        return torch.cat([a, b], dim=-1)
+    if mode == "hadamard":
+        return torch.cat([a, b, a * b, (a - b).abs()], dim=-1)
+    raise ValueError(f"unknown edge feature mode {mode!r}")
+
+
+def _edge_concat(x: torch.Tensor, query_edges: torch.Tensor) -> torch.Tensor:
+    """``[B, 2]`` endpoint pairs -> their concatenated rows ``[B, 2D]``."""
+    return _edge_features(x, query_edges, "concat")
+
+
+def check_query_edges(head: nn.Module, query_edges) -> None:
+    """A link head needs ``query_edges``, a node head takes none."""
+    if (query_edges is not None) != head.link:
+        kind = "a link head needs" if head.link else "a node head takes no"
+        raise ValueError(f"{type(head).__name__}: {kind} query_edges")
+
+
 def _dense(layer: nn.Linear, x: torch.Tensor) -> torch.Tensor:
     """flax ``Dense(dtype=x.dtype)``: kernel and bias cast to the input's
     type, the parameters themselves kept in float32."""
@@ -134,18 +179,29 @@ def _dense(layer: nn.Linear, x: torch.Tensor) -> torch.Tensor:
 
 
 class LogisticRegression(nn.Module):
-    """Linear head."""
+    """Linear head; with ``link``, ``edge_fc`` scores the pairs of its
+    outputs."""
 
-    def __init__(self, feat_dim: int, output_dim: int):
+    def __init__(self, feat_dim: int, output_dim: int, link: bool = False,
+                 edge_mode: str = "concat"):
         super().__init__()
+        self.link, self.edge_mode = link, edge_mode
         self.fc = nn.Linear(feat_dim, output_dim)
+        if link:
+            self.edge_fc = nn.Linear(edge_width(output_dim, edge_mode), output_dim)
         self.reset_parameters()
 
     def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
         init_dense_xavier_relu_(self.fc, generator)
+        if self.link:
+            init_dense_xavier_relu_(self.edge_fc, generator)
 
-    def forward(self, feature):
-        return self.fc(feature)
+    def forward(self, feature, query_edges=None):
+        check_query_edges(self, query_edges)
+        x = self.fc(feature)
+        if not self.link:
+            return x
+        return self.edge_fc(_edge_features(x, query_edges, self.edge_mode))
 
 
 class MultiLayerPerceptron(nn.Module):
@@ -153,17 +209,20 @@ class MultiLayerPerceptron(nn.Module):
 
     ``dtype="bfloat16"`` runs the layers in bf16 (operands cast, parameters
     kept in float32) and returns float32 logits, as the reference's
-    ``dtype=jnp.bfloat16``."""
+    ``dtype=jnp.bfloat16``. With ``link``, ``edge_fc`` (in place of
+    ``fc_out``) scores the pairs of the last hidden layer, dropped out once
+    more."""
 
     def __init__(self, feat_dim: int, hidden_dim: int, output_dim: int,
                  num_layers: int = 2, dropout: float = 0.5, bn: bool = False,
-                 dtype: str = "float32"):
+                 dtype: str = "float32", link: bool = False, edge_mode: str = "concat"):
         super().__init__()
         if num_layers < 2:
             raise ValueError("MLP must have at least two layers!")
         if dtype not in _DTYPES:
             raise ValueError(f"head compute dtype must be one of {sorted(_DTYPES)}, got {dtype!r}")
         self.output_dim, self.num_layers, self.bn = output_dim, num_layers, bn
+        self.link, self.edge_mode = link, edge_mode
         self.compute_dtype = _DTYPES[dtype]
         dims = [feat_dim] + [hidden_dim] * (num_layers - 1)
         for i in range(num_layers - 1):
@@ -171,7 +230,10 @@ class MultiLayerPerceptron(nn.Module):
             if bn:
                 self.add_module(f"bn_{i}", BatchNorm(hidden_dim))
             self.add_module(f"prelu_{i}", PReLU())
-        self.fc_out = nn.Linear(hidden_dim, output_dim)
+        if link:
+            self.edge_fc = nn.Linear(edge_width(hidden_dim, edge_mode), output_dim)
+        else:
+            self.fc_out = nn.Linear(hidden_dim, output_dim)
         self.dropout = Dropout(dropout)
         self.reset_parameters()
 
@@ -181,9 +243,10 @@ class MultiLayerPerceptron(nn.Module):
             if self.bn:
                 getattr(self, f"bn_{i}").reset_parameters()
             getattr(self, f"prelu_{i}").reset_parameters()
-        init_dense_xavier_relu_(self.fc_out, generator)
+        init_dense_xavier_relu_(self.edge_fc if self.link else self.fc_out, generator)
 
-    def forward(self, feature):
+    def forward(self, feature, query_edges=None):
+        check_query_edges(self, query_edges)
         x = feature.to(self.compute_dtype)
         for i in range(self.num_layers - 1):
             x = _dense(getattr(self, f"fc_{i}"), x)
@@ -191,25 +254,34 @@ class MultiLayerPerceptron(nn.Module):
                 x = getattr(self, f"bn_{i}")(x)
             x = getattr(self, f"prelu_{i}")(x)
             x = self.dropout(x)
-        return _dense(self.fc_out, x).float()
+        if not self.link:
+            return _dense(self.fc_out, x).float()
+        x = self.dropout(_edge_features(x, query_edges, self.edge_mode))
+        return _dense(self.edge_fc, x).float()
 
 
 class ResMultiLayerPerceptron(nn.Module):
     """Residual MLP: dropout first, ReLU blocks whose residual is the
-    previous block's activation, flax-default (lecun-normal) Dense init."""
+    previous block's activation, flax-default (lecun-normal) Dense init.
+    With ``link``, ``edge_fc`` (in place of ``fc_out``) scores the
+    concatenated pairs."""
 
     def __init__(self, feat_dim: int, hidden_dim: int, output_dim: int,
-                 num_layers: int = 2, dropout: float = 0.8, bn: bool = False):
+                 num_layers: int = 2, dropout: float = 0.8, bn: bool = False,
+                 link: bool = False):
         super().__init__()
         if num_layers < 2:
             raise ValueError("ResMLP must have at least two layers!")
-        self.num_layers, self.bn = num_layers, bn
+        self.num_layers, self.bn, self.link = num_layers, bn, link
         for i in range(num_layers - 1):
             self.add_module(f"fc_{i}", nn.Linear(feat_dim if i == 0 else hidden_dim,
                                                  hidden_dim))
             if bn:
                 self.add_module(f"bn_{i}", BatchNorm(hidden_dim))
-        self.fc_out = nn.Linear(hidden_dim, output_dim)
+        if link:
+            self.edge_fc = nn.Linear(edge_width(hidden_dim), output_dim)
+        else:
+            self.fc_out = nn.Linear(hidden_dim, output_dim)
         self.dropout = Dropout(dropout)
         self.reset_parameters()
 
@@ -218,7 +290,7 @@ class ResMultiLayerPerceptron(nn.Module):
             init_dense_(getattr(self, f"fc_{i}"), generator=generator)
             if self.bn:
                 getattr(self, f"bn_{i}").reset_parameters()
-        init_dense_(self.fc_out, generator=generator)
+        init_dense_(self.edge_fc if self.link else self.fc_out, generator=generator)
 
     def _block(self, i: int, x):
         x = getattr(self, f"fc_{i}")(self.dropout(x))
@@ -226,34 +298,49 @@ class ResMultiLayerPerceptron(nn.Module):
             x = getattr(self, f"bn_{i}")(x)
         return torch.relu(x)
 
-    def forward(self, feature):
+    def forward(self, feature, query_edges=None):
+        check_query_edges(self, query_edges)
         x = residual = self._block(0, feature)
         for i in range(1, self.num_layers - 1):
             x_act = self._block(i, x)
             x, residual = x_act + residual, x_act
-        return self.fc_out(self.dropout(x))
+        x = self.dropout(x)
+        if not self.link:
+            return self.fc_out(x)
+        return self.edge_fc(_edge_concat(x, query_edges))
 
 
 class Layer2GraphConvolution(nn.Module):
     """Naive 2-layer GCN: ``A @ fc2(dropout(relu(A @ fc1(x))))``. The
     adjacency comes into ``forward`` (for training, a
-    :func:`ssrg_torch.ops.sparse.differentiable_adjacency`)."""
+    :func:`ssrg_torch.ops.sparse.differentiable_adjacency`). With ``link``,
+    the second layer is ``A @ fc2_edge(...)`` at the hidden width and
+    ``edge_fc`` scores the concatenated pairs of its rows."""
 
     def __init__(self, feat_dim: int, hidden_dim: int, output_dim: int,
-                 dropout: float = 0.5):
+                 dropout: float = 0.5, link: bool = False):
         super().__init__()
+        self.link = link
         self.fc1 = nn.Linear(feat_dim, hidden_dim)
-        self.fc2 = nn.Linear(hidden_dim, output_dim)
+        if link:
+            self.fc2_edge = nn.Linear(hidden_dim, hidden_dim)
+            self.edge_fc = nn.Linear(edge_width(hidden_dim), output_dim)
+        else:
+            self.fc2 = nn.Linear(hidden_dim, output_dim)
         self.dropout = Dropout(dropout)
         self.reset_parameters()
 
     def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
-        init_dense_(self.fc1, generator=generator)
-        init_dense_(self.fc2, generator=generator)
+        layers = ("fc1", "fc2_edge", "edge_fc") if self.link else ("fc1", "fc2")
+        for name in layers:
+            init_dense_(getattr(self, name), generator=generator)
 
-    def forward(self, feature, adj):
-        x = torch.relu(adj.spmm(self.fc1(feature)))
-        return adj.spmm(self.fc2(self.dropout(x)))
+    def forward(self, feature, adj, query_edges=None):
+        check_query_edges(self, query_edges)
+        x = self.dropout(torch.relu(adj.spmm(self.fc1(feature))))
+        if not self.link:
+            return adj.spmm(self.fc2(x))
+        return self.edge_fc(_edge_concat(adj.spmm(self.fc2_edge(x)), query_edges))
 
 
 class IdenticalMapping(nn.Module):

@@ -29,11 +29,9 @@ import torch
 from torch import nn
 
 from ssrg_torch.configs.config import WaveletConfig
-from ssrg_torch.models.heads import Dropout
+from ssrg_torch.models.heads import Dropout, _edge_concat, check_query_edges
 from ssrg_torch.ops.sparse import Adjacency, device_adjacency, differentiable_adjacency
-from ssrg_torch.utils import DeviceLike, resolve_device, synchronize, variance_scaling_
-
-LINK_SLICE = "ROADMAP.md section 1, the 'Link / augmentation' item"
+from ssrg_torch.utils import DeviceLike, init_dense_, resolve_device, synchronize, variance_scaling_
 
 
 # ---------------------------------------------------------------------------
@@ -236,14 +234,20 @@ class GraphWaveletLayer(nn.Module):
 
 class Wavelet2NeuralNetwork(nn.Module):
     """Two wavelet layers, ``conv1`` (ReLU, dropout) and ``conv2``; returns
-    raw logits. ``forward(feature, adj)`` takes ``adj = (Φ, Φ⁻¹)``."""
+    raw logits. ``forward(feature, adj)`` takes ``adj = (Φ, Φ⁻¹)``. With
+    ``link``, ``edge_fc`` (``[2 C, C]``, flax-default init) scores the
+    concatenated logits of each pair of ``query_edges``."""
 
     def __init__(self, feat_dim: int, hidden_dim: int, output_dim: int,
-                 dropout: float = 0.5, num_nodes: int = 0):
+                 dropout: float = 0.5, num_nodes: int = 0, link: bool = False):
         super().__init__()
+        self.link = link
         self.conv1 = GraphWaveletLayer(feat_dim, hidden_dim, num_nodes, dropout)
         self.conv2 = GraphWaveletLayer(hidden_dim, output_dim, num_nodes, dropout,
                                        apply_act=False)
+        if link:
+            self.edge_fc = nn.Linear(2 * output_dim, output_dim)
+            init_dense_(self.edge_fc)
 
     def set_num_nodes(self, num_nodes: int) -> None:
         self.conv1.set_num_nodes(num_nodes)
@@ -252,9 +256,13 @@ class Wavelet2NeuralNetwork(nn.Module):
     def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
         self.conv1.reset_parameters(generator)
         self.conv2.reset_parameters(generator)
+        if self.link:
+            init_dense_(self.edge_fc, generator=generator)
 
     def forward(self, feature, adj, query_edges=None):
-        if query_edges is not None:
-            raise NotImplementedError(f"the wavelet model's query_edges scorer: {LINK_SLICE}")
+        check_query_edges(self, query_edges)
         phi, phi_inv = adj
-        return self.conv2(self.conv1(feature, phi, phi_inv), phi, phi_inv)
+        logits = self.conv2(self.conv1(feature, phi, phi_inv), phi, phi_inv)
+        if not self.link:
+            return logits
+        return self.edge_fc(_edge_concat(logits, query_edges))

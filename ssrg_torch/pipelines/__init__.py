@@ -1,0 +1,11 @@
+from ssrg_torch.pipelines.sparsify import (  # noqa: F401
+    edge_masked,
+    feature_masked,
+    save_raw_dataset,
+    sparsify_dataset,
+)
+from ssrg_torch.pipelines.augment import (  # noqa: F401
+    augment_dataset,
+    edge_augment,
+    feature_augment,
+)

@@ -5,3 +5,6 @@ from ssrg_torch.train.node_classification import (  # noqa: F401
     prepare,
     slice_inputs,
 )
+from ssrg_torch.train.link_classification import LinkClassification  # noqa: F401
+from ssrg_torch.train.augment_train import TrainModel  # noqa: F401
+from ssrg_torch.train.base_task import BaseTask  # noqa: F401

@@ -124,13 +124,15 @@ def create_train_state(module: nn.Module, generator: torch.Generator, lr: float,
 
 def train_step(state: TrainState, inputs, labels: torch.Tensor,
                weights: Optional[torch.Tensor] = None, idx: Optional[torch.Tensor] = None,
-               adj=None) -> torch.Tensor:
+               adj=None, query_edges: Optional[torch.Tensor] = None) -> torch.Tensor:
     """One update on a batch (the reference's jitted ``train_step``): the
     module in training mode, the loss of its logits (rows ``idx`` of a
-    full-graph forward when given), backward, one optimizer update. Returns
-    the loss, detached, on the device (no host sync)."""
+    full-graph forward when given; a link head's scores of
+    ``query_edges``), backward, one optimizer update. Returns the loss,
+    detached, on the device (no host sync)."""
     module = state.module.train()
-    logits = module(inputs) if adj is None else module(inputs, adj)
+    kwargs = {} if query_edges is None else {"query_edges": query_edges}
+    logits = module(inputs, **kwargs) if adj is None else module(inputs, adj, **kwargs)
     if idx is not None:
         logits = logits[idx]
     loss = cross_entropy_loss(logits, labels, weights)

@@ -1,12 +1,14 @@
-"""Small helpers shared by the port: device resolution and the parameter
+"""Small helpers shared by the port: device resolution, the parameter
 initializers of the reference's flax modules, drawn from an explicit
-``torch.Generator``."""
+``torch.Generator``, and the reference's run utilities (``get_params``,
+``generate_numbers``, ``compute_distance``)."""
 
 from __future__ import annotations
 
 import math
-from typing import Optional, Union
+from typing import Iterable, List, Optional, Sequence, Union
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -77,3 +79,25 @@ def synchronize(device: torch.device) -> None:
     CPU)."""
     if device.type == "cuda":
         torch.cuda.synchronize(device)
+
+
+def get_params(params: Union[nn.Module, Iterable[torch.Tensor]]) -> int:
+    """The number of parameters of a module, or of an iterable of tensors
+    (a state dict's ``values()``, say)."""
+    tensors = params.parameters() if isinstance(params, nn.Module) else params
+    return sum(int(t.numel()) for t in tensors)
+
+
+def generate_numbers(n: int, exclude: int, pool: Sequence[int],
+                     rng: Optional[np.random.Generator] = None) -> List[int]:
+    """``n`` draws, with replacement, from ``pool`` less the value
+    ``exclude``."""
+    rng = rng or np.random.default_rng()
+    pool_arr = np.asarray(pool)
+    pool_arr = pool_arr[pool_arr != exclude]
+    return rng.choice(pool_arr, size=n, replace=True).tolist()
+
+
+def compute_distance(candidates: np.ndarray, target: np.ndarray) -> np.ndarray:
+    """The L2 distance of each row of ``candidates`` to ``target``."""
+    return np.linalg.norm(np.asarray(candidates) - np.asarray(target)[None, :], axis=1)

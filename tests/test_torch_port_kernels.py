@@ -40,6 +40,8 @@ ELL_CASES = [  # (rows, n, width, f, empty_fraction[, kind])
     (100, 80, 12, 20, 0.1, "holes"),       # F = 20, a ragged tile
     (90, 200, 33, 130, 0.1, "holes"),      # F = 130: scalar loads, several tiles
     (70, 120, 20, 300, 0.1, "holes"),      # F = 300, a ragged last tile
+    (80, 120, 16, 296, 0.1, "holes"),      # F = 296 (hidden + classes of an augmented
+                                           # graph): float4 lanes, a last tile of 40
     (99, 60, 9, 48, 0.1, "misaligned"),    # x 4 bytes off 16-byte alignment
     (120, 90, 11, 3, 0.1, "holes"),        # F = 3, a class count: scalar lanes only
     (130, 150, 9, 1024, 0.1, "holes"),     # F = 1,024, the Chebyshev impulse block
@@ -491,3 +493,29 @@ def test_kernels_refuse_to_run_under_autograd():
         build_pallas_csr(adj).spmm(xg)
     with torch.no_grad():
         assert build_pallas_csr(adj).spmm(xg).shape == (30, 4)
+
+
+@pytest.mark.cuda
+def test_link_gcn_on_the_card_launches_the_kernel(cuda_device):
+    """The GCN's link head on the card above ``DENSE_THRESHOLD`` (the
+    hybrid engine): 4 ``ell_spmm`` launches a training epoch (2 forward, 2
+    backward) and 4 an evaluation (validation and test, 2 each); its
+    first epoch's loss within 1e-4 of the CPU run's (the same initial
+    weights from the host generator, dropout 0)."""
+    from ssrg_torch.configs.config import ModelConfig, TrainingConfig
+    from ssrg_torch.data.link import link_dataset_from_graph
+    from ssrg_torch.data.synthetic import planetoid_like
+    from ssrg_torch.models.zoo import load_model
+    from ssrg_torch.train import LinkClassification
+
+    kw = dict(num_node=9_000, num_classes=4, num_features=16, seed=2)
+    mc = ModelConfig(model_name="gcn", hidden_dim=32, dropout=0.0)
+    tc = TrainingConfig(num_epochs=2, lr=1e-3)
+    losses = {}
+    for device in ("cpu", "cuda"):
+        link = link_dataset_from_graph(planetoid_like(**kw), seed=1)
+        ell_spmm.launches = 0
+        task = LinkClassification(link, load_model(mc, 16, 2, link=True), mc, tc, device=device)
+        losses[device] = task.history["loss"]
+    assert ell_spmm.launches == 8 * tc.num_epochs
+    np.testing.assert_allclose(losses["cuda"][0], losses["cpu"][0], rtol=1e-4)

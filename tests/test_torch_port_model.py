@@ -187,9 +187,10 @@ def test_predictor_rejects_out_of_range_ids(datasets):
 
 def test_unported_paths_raise(datasets):
     """Every registry model builds and every graph op runs through
-    ``prepare``; what is still unported (the ``query_edges`` link scorer,
-    the bench's sharded tier) raises ``NotImplementedError`` naming its
-    ROADMAP item; a config passed for a spec is a ``TypeError``."""
+    ``prepare``; what is still unported (the bench's sharded tier) raises
+    ``NotImplementedError`` naming its ROADMAP item; ``query_edges`` given
+    to a node head (built without ``link``) is a ``ValueError``; a config
+    passed for a spec is a ``TypeError``."""
     from ssrg_torch import bench
     from ssrg_torch.models.zoo import GRAPH_OPS
 
@@ -207,7 +208,7 @@ def test_unported_paths_raise(datasets):
     wavelet = load_model(ModelConfig(model_name="wavelet", hidden_dim=8), 48, 4).module.head
     wavelet.set_num_nodes(3)
     eye = DenseAdj(torch.eye(3))
-    with pytest.raises(NotImplementedError, match="Link / augmentation"):
+    with pytest.raises(ValueError, match="query_edges"):
         wavelet(torch.ones(3, 48), (eye, eye), query_edges=torch.zeros(1, 2, dtype=torch.long))
     with pytest.raises(NotImplementedError, match="ROADMAP.md section 1"):
         bench.sharded_tier_metrics(None, 4, 2)
