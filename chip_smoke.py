@@ -77,7 +77,25 @@ Phases, each printing JSON lines:
               at F = 256 on the observed-edge pack, 8 launches an epoch,
               fc1's gradient within its first-order bound) and GAMLP's (3 in
               ``prepare``). The new kernel shapes timed (``robust_cases``).
-8. bench    — ``ssrg_torch.bench.run_bench()`` at its defaults (169,343
+8. baseline — the message-passing baselines through ``BaselineTask`` on the
+              ``train`` graph: GCN and SAGE (3 layers x 256; the ELL kernel
+              forward and, on the pack of A^T, backward: 9 and 8 launches an
+              epoch, the first layer's gradient within its first-order
+              bound), GAT (2 layers, 8 heads of 64; held to a float64 dense
+              oracle on a 2,000-node subgraph), MLP, robust MLP with the
+              triplet term, SGC and SIGN (K = 3 on the kernel in
+              ``prepare``); then the GCN on 128 cluster parts, 8 a batch.
+              Each: ``prepare`` seconds, epoch and evaluation times, peak
+              device memory, launches checked, best val >= 0.25. SAGE's
+              packs (A, and A^T as the backward) timed at F = 256.
+9. ooc      — single-card out-of-core: the ``train`` graph written as
+              ``.npy`` files, spooled into 8 shards, K = 3 hops block at a
+              time (both schedules, the ``coo`` engine, the bf16 transfer)
+              held to the in-core hybrid ``propagate``, ELL launches per hop
+              equal to the non-empty buckets, ``dest_outer``'s device memory
+              within an O(block*F + bucket) bound; ``run_outofcore`` SGC and
+              GAMLP on the artifacts; the largest bucket's pack timed.
+10. bench   — ``ssrg_torch.bench.run_bench()`` at its defaults (169,343
               nodes, degree 13.7, F = 128, K = 3, 10 iterations): its JSON
               line, each tier's kernel launches (headline: ELL, clustered:
               rest, banded: banded), the headline hops traced with
@@ -2351,6 +2369,523 @@ def phase_robust(trace_root: str, graph: dict = None) -> dict:
             "cases": cases}
 
 
+# --- the message-passing baselines ----------------------------------------------
+
+BASELINE_EPOCHS = 10
+# (model, BaselineTask keywords, ELL launches of its prepare, of an epoch).
+# GCN: 3 forward, 3 backward, 3 evaluation; SAGE: its first SpMM multiplies
+# the raw x, which takes no gradient, so 3 + 2 + 3; SGC and SIGN: K = 3 hops.
+BASELINE_RUNS = (
+    ("gcn", dict(hidden_dim=256, num_layers=3), 0, 9),
+    ("sage", dict(hidden_dim=256, num_layers=3), 0, 8),
+    ("gat", dict(hidden_dim=64, num_layers=2), 0, 0),
+    ("mlp", dict(hidden_dim=256, num_layers=3), 0, 0),
+    ("robust_mlp", dict(hidden_dim=256, num_layers=3, triplet_weight=0.1), 0, 0),
+    ("sgc", dict(prop_steps=3), 3, 0),
+    ("sign", dict(hidden_dim=256, prop_steps=3), 3, 0),
+)
+CLUSTER = dict(cluster_parts=128, parts_per_batch=8)
+GAT_ORACLE_NODES = 2_000
+
+
+def baseline_run(ds, name: str, kw: dict, tc) -> tuple:
+    """``BaselineTask`` on the card, counted and timed as :func:`train_run`
+    does a node task: the constructor (packing, propagation, cluster
+    batches) and the run each timed and their launches read, every epoch's
+    training and evaluation timed."""
+    import torch
+
+    from ssrg_torch.train.baseline_task import BaselineTask
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    task = BaselineTask(ds, name, tc, run=False, device="cuda", **kw)
+    prepare_launches = read_launches()
+    times = time_epochs(task)
+    t1 = time.perf_counter()
+    task.execute(0, seed=tc.seed)
+    torch.cuda.synchronize()
+    best_val, best_test = task.best_of_run(0)
+    rec = {"prepare_s": task.prepare_seconds, "train_s": time.perf_counter() - t1,
+           "prepare_launches": prepare_launches, "launches": read_launches(),
+           "epochs": tc.num_epochs, "losses": task.history["loss"],
+           "val_acc": task.history["val_acc"], "best_val": float(best_val),
+           "best_test": float(best_test),
+           "peak_mem_bytes": torch.cuda.max_memory_allocated(), **times,
+           "epoch_ms_after_first": float(np.median(times["train_epoch_ms"][1:])),
+           "eval_ms_after_first": float(np.median(times["eval_ms"][1:]))}
+    return task, rec
+
+
+def check_baseline_launches(name: str, rec: dict, prepare: int, per_epoch: int) -> None:
+    none = {"ell_spmm": 0, "banded_spmm": 0, "rest_spmm": 0}
+    epochs = [t + e for t, e in zip(rec["train_epoch_launches"], rec["eval_launches"])]
+    check(rec["prepare_launches"] == {**none, "ell_spmm": prepare},
+          f"{name}: prepare launched {rec['prepare_launches']}, expected ell_spmm {prepare}")
+    check(epochs == [per_epoch] * rec["epochs"],
+          f"{name}: epochs launched ell_spmm {epochs}, expected {per_epoch} each")
+    check(rec["launches"] == {**none, "ell_spmm": prepare + per_epoch * rec["epochs"]},
+          f"{name}: the run launched {rec['launches']}")
+
+
+def layered_forward(name: str, module, x, spmm, masks=None):
+    """The baseline GCN's or SAGE's evaluation-mode forward with ``spmm``
+    as its graph product: ``(logits, first-layer output, ReLU masks)``.
+    ``masks`` (from an earlier call) replaces the ReLUs, so that a
+    pre-activation within rounding of 0 cannot flip its sign between two
+    paths."""
+    import torch
+
+    keep, out_masks, h, first = masks, [], x, None
+    layers = module.num_layers
+    for i in range(layers):
+        if name == "gcn":
+            lin = getattr(module, f"conv_{i}" if i < layers - 1 else "conv_out")(h)
+            if first is None:
+                first = lin
+            t = spmm(lin)
+        else:
+            t = getattr(module, f"self_{i}")(h) + getattr(module, f"nbr_{i}")(spmm(h))
+            if first is None:
+                first = t
+        if i == layers - 1:
+            return t, first, out_masks
+        mask = keep[i] if keep is not None else (t > 0).float().detach()
+        out_masks.append(mask)
+        h = t * mask
+
+
+def baseline_gradient_check(name: str, task, adj_norm) -> dict:
+    """The first layer's gradient of the trained 3-layer GCN or SAGE for
+    one step (evaluation mode, so no dropout): through the task's
+    ``DifferentiableAdj`` (the ELL kernel forward, and backward on the pack
+    of A^T: GCN's own pack, SAGE's pack of the transposed row-mean
+    adjacency) against the same function through ``ell_spmm_plain`` and
+    autograd, with the kernel path's ReLU masks.
+
+    Bound, first order, the rule of :func:`gcn_gradient_check` carried
+    through every layer: an SpMM output of either path is within ``c*u`` of
+    its exact sum of |terms| (c the most terms of a row or column, u =
+    2^-24), so the two differ by ``2*c*u`` of it; a product over k terms fed
+    by different inputs adds ``2*k*u`` of its |terms| (the first layer's
+    own product sees the same x in both paths and adds nothing); a sum of
+    two adds ``2*u``; softmax moves the loss gradient by at most half the
+    largest logit difference. The magnitudes |A|, |W|, |x| carry each
+    difference through the layers, forward and then backward."""
+    import torch
+    import torch.nn.functional as F
+
+    u = UNIT_ROUNDOFF
+    module, adj, x = task.state.module.eval(), task.adj_op, task.inputs
+    idx = task.idx["train"]
+    y = task.labels[idx]
+    n, n_t, c = x.shape[0], idx.shape[0], max_terms(adj_norm)
+    first_w = module.conv_0.weight if name == "gcn" else module.nbr_0.weight
+    a_abs = lambda v: plain_hybrid_spmm(adj.fwd, v)   # noqa: E731 (weights >= 0)
+    at_abs = lambda v: plain_hybrid_spmm(adj.bwd, v)  # noqa: E731
+
+    def grads(spmm, masks):
+        module.zero_grad(set_to_none=True)
+        z, first, out_masks = layered_forward(name, module, x, spmm, masks)
+        first.retain_grad()
+        F.cross_entropy(z[idx], y).backward()
+        return (first.grad.detach(), first_w.grad.detach().clone(), z.detach(),
+                out_masks)
+
+    reset_launches()
+    g_k, gw_k, z, masks = grads(adj.spmm, None)
+    torch.cuda.synchronize()
+    launches = read_launches()["ell_spmm"]
+    expected = 6 if name == "gcn" else 5
+    check(launches == expected, f"one {name} step launched ell_spmm {launches} times, "
+          f"expected {expected}")
+    with torch.no_grad():
+        z_model = module(x, adj)
+    g_p, gw_p, _, _ = grads(lambda v: plain_hybrid_spmm(adj.fwd, v), masks)
+    check(bool(gw_k.abs().sum() > 0), f"{name}: the first layer's gradient is zero")
+
+    with torch.no_grad():
+        # forward: (magnitude, difference bound) of each layer's output
+        m, e = x.abs(), torch.zeros_like(x)
+        mags = []
+        for i in range(module.num_layers):
+            if name == "gcn":
+                lin = getattr(module, f"conv_{i}" if i < module.num_layers - 1 else "conv_out")
+                w, b = lin.weight.abs(), lin.bias.abs()
+                t = m @ w.T + b
+                e_t = e @ w.T + (2 * w.shape[1] * u * t if i else 0.0)
+                p = a_abs(t)
+                e_p = a_abs(e_t) + 2 * c * u * p
+            else:
+                lin_s, wn = getattr(module, f"self_{i}"), getattr(module, f"nbr_{i}").weight.abs()
+                ws, bs = lin_s.weight.abs(), lin_s.bias.abs()
+                nm = a_abs(m)
+                e_n = a_abs(e) + 2 * c * u * nm
+                mags.append(nm)
+                p = m @ ws.T + bs + nm @ wn.T
+                e_p = e @ ws.T + e_n @ wn.T + 2 * (ws.shape[1] + 1) * u * p
+            if i < module.num_layers - 1:
+                m, e = masks[i] * p, masks[i] * e_p
+        e_z = e_p
+        # the checked forward is the model's, up to the summation order of
+        # the tail's index_add_ (atomics: not bitwise repeatable)
+        check(bool(((z - z_model).abs() <= e_z + 1e-30).all()),
+              f"{name}: the checked forward is not the model's")
+        # backward, from the loss gradient at the logits
+        d = torch.zeros_like(z)
+        d[idx] = (torch.softmax(z[idx], 1) - F.one_hot(y, z.shape[1])).abs() / n_t
+        e_d = torch.zeros_like(z)
+        e_d[idx] = (0.5 * e_z[idx].amax(dim=1, keepdim=True) + 4 * u) / n_t
+        g, e_g = d, e_d
+        for i in range(module.num_layers - 1, 0, -1):
+            if name == "gcn":
+                g_t = at_abs(g)
+                e_gt = at_abs(e_g) + 2 * c * u * g_t
+                w = getattr(module, f"conv_{i}" if i < module.num_layers - 1 else "conv_out")
+                w = w.weight.abs()
+                g_h = g_t @ w
+                e_gh = e_gt @ w + 2 * w.shape[0] * u * g_h
+            else:
+                ws = getattr(module, f"self_{i}").weight.abs()
+                wn = getattr(module, f"nbr_{i}").weight.abs()
+                a, bb = g @ ws, at_abs(g @ wn)
+                e_a = e_g @ ws + 2 * ws.shape[0] * u * a
+                e_bb = at_abs(e_g @ wn + 2 * wn.shape[0] * u * (g @ wn)) + 2 * c * u * bb
+                g_h = a + bb
+                e_gh = e_a + e_bb + 2 * u * g_h
+            g, e_g = masks[i - 1] * g_h, masks[i - 1] * e_gh
+        if name == "gcn":     # through the first SpMM to conv_0's output
+            g0, tol0 = at_abs(g), at_abs(e_g) + 2 * c * u * at_abs(g)
+            tol_w = tol0.T @ x.abs() + 2 * n * u * (g0.T @ x.abs())
+        else:                 # the first layer's output; nbr_0 multiplies A x
+            g0, tol0 = g, e_g
+            ax, e_ax = mags[0], 2 * c * u * mags[0]
+            tol_w = tol0.T @ ax + g0.T @ e_ax + 2 * n * u * (g0.T @ ax)
+        err0 = (g_k - g_p).abs()
+        err_w = (gw_k - gw_p).abs()
+    check(bool((err0 <= tol0 + 1e-30).all()),
+          f"{name} gradient at the first layer's output: kernel vs plain beyond the bound "
+          f"(max abs err {float(err0.max())})")
+    check(bool((err_w <= tol_w + 1e-30).all()),
+          f"{name} first-layer weight gradient: kernel vs plain beyond the bound "
+          f"(max abs err {float(err_w.max())})")
+    return {"step_launches": launches, "terms_c": c,
+            "first_grad_abs_sum": float(gw_k.abs().sum()),
+            "first_out_grad_max_abs_err": float(err0.max()),
+            "first_out_grad_err_over_bound_max": float((err0 / (tol0 + 1e-30)).max()),
+            "first_weight_grad_max_abs_err": float(err_w.max()),
+            "first_weight_grad_max_rel_err": float(err_w.max()) / float(gw_p.abs().max()),
+            "first_weight_grad_err_over_bound_max": float((err_w / (tol_w + 1e-30)).max())}
+
+
+def gat_oracle_check(task, ds) -> dict:
+    """The trained GAT's card forward on the subgraph induced by the first
+    ``GAT_ORACLE_NODES`` nodes of BFS order (a connected neighbourhood)
+    against dense float64 attention with the same weights: within 1e-4,
+    elementwise."""
+    import torch
+    import torch.nn.functional as F
+
+    from ssrg_torch.models.baselines import EdgeList
+    from ssrg_torch.train.baseline_task import bfs_order
+
+    module = task.state.module.eval()
+    g = bfs_order(ds.adj.tocsr())[:GAT_ORACLE_NODES]
+    sub = ds.adj.tocsr()[g][:, g]
+    x = np.asarray(ds.x, np.float32)[g]
+    with torch.no_grad():
+        out = module(torch.as_tensor(x, device="cuda"),
+                     EdgeList.from_scipy(sub).to("cuda")).cpu().numpy().astype(np.float64)
+    mask = sub.toarray() != 0
+    h = x.astype(np.float64)
+    for i, d in enumerate(module.dims):
+        w = getattr(module, f"w_{i}").weight.detach().cpu().numpy().T.astype(np.float64)
+        a_src = getattr(module, f"a_src_{i}").detach().cpu().numpy()[0].astype(np.float64)
+        a_dst = getattr(module, f"a_dst_{i}").detach().cpu().numpy()[0].astype(np.float64)
+        z = (h @ w).reshape(len(g), module.heads, d)
+        s_src, s_dst = (z * a_src).sum(-1), (z * a_dst).sum(-1)
+        outs = np.zeros_like(z)
+        for k in range(module.heads):
+            s = s_dst[:, k][:, None] + s_src[:, k][None, :]
+            s = np.where(s > 0, s, module.negative_slope * s)
+            top = np.max(np.where(mask, s, -np.inf), axis=1, keepdims=True)
+            e = np.where(mask, np.exp(s - np.where(np.isfinite(top), top, 0.0)), 0.0)
+            outs[:, k] = e / np.maximum(e.sum(1, keepdims=True), 1e-300) @ z[:, k]
+        if i == module.num_layers - 1:
+            h = outs.mean(axis=1)
+        else:
+            h = F.elu(torch.from_numpy(outs.reshape(len(g), -1))).numpy()
+    err = float(np.abs(out - h).max())
+    check(np.isfinite(out).all() and err <= 1e-4,
+          f"gat: card forward vs the float64 oracle {err} > 1e-4")
+    return {"oracle_nodes": len(g), "oracle_edges": int(sub.nnz), "oracle_max_abs_err": err,
+            "oracle_max_abs": float(np.abs(h).max())}
+
+
+def phase_baseline(graph: dict = None) -> dict:
+    """The seven baselines through ``BaselineTask`` on the ``train`` cell's
+    graph (``planetoid_like(**TRAIN_GRAPH)``, ogbn-arxiv's size and splits),
+    ``BASELINE_EPOCHS`` epochs each, then the GCN on cluster minibatches.
+    Checks: launches per ``prepare`` and per epoch (``BASELINE_RUNS``),
+    finite losses (GCN and SAGE falling), best val >= 0.25, the first-layer
+    gradients of GCN and SAGE within their bounds, GAT against its dense
+    oracle. The kernel timed on SAGE's packs (forward, and A^T as the
+    backward) at F = 256. Returns the launches of each path and the timed
+    cases."""
+    import torch
+
+    from ssrg_torch.configs.config import TrainingConfig
+    from ssrg_torch.data.synthetic import planetoid_like
+    from ssrg_torch.ops.normalize import sym_norm
+    from ssrg_torch.ops.sparse import DifferentiableAdj
+    from ssrg_torch.train.baseline_task import mean_norm
+
+    stage_s = {}
+    t0 = time.perf_counter()
+    ds = planetoid_like(**(graph or TRAIN_GRAPH))
+    stage_s["data"] = time.perf_counter() - t0
+    tc = TrainingConfig(num_epochs=BASELINE_EPOCHS, lr=0.01, seed=SEED)
+    launches, cases = {}, {}
+    gen = torch.Generator().manual_seed(SEED)
+    for name, kw, prep, per_epoch in BASELINE_RUNS:
+        t0 = time.perf_counter()
+        task, rec = baseline_run(ds, name, kw, tc)
+        check_baseline_launches(name, rec, prep, per_epoch)
+        losses = rec["losses"]
+        check(all(np.isfinite(losses)), f"{name} losses {losses}")
+        if name in ("gcn", "sage"):
+            check(losses[-1] < losses[0], f"{name} losses {losses}: not falling")
+        check(rec["best_val"] >= 0.25, f"{name} best val {rec['best_val']} < 0.25")
+        rec.update(phase="baseline", run=name, **kw, nodes=ds.num_node,
+                   features=ds.num_features, launches_per_epoch=per_epoch)
+        if name in ("gcn", "sage"):
+            norm = sym_norm(ds.adj, 0.5) if name == "gcn" else mean_norm(ds.adj)
+            rec["transposed_pack_reused"] = task.adj_op.symmetric
+            rec["width"], rec["bwd_width"] = task.adj_op.fwd.ell.width, task.adj_op.bwd.ell.width
+            rec.update(baseline_gradient_check(name, task, norm))
+        if name == "sage":
+            for case, pack in (("sage_fwd_f256", task.adj_op.fwd),
+                               ("sage_bwd_f256", task.adj_op.bwd)):
+                g = torch.randn(ds.num_node, 256, generator=gen).to("cuda")
+                cases[case] = ell_case(case, pack.ell.cols, pack.ell.vals, g, timed=True,
+                                       tail=pack.tail)
+                cases[case].update(phase="baseline", pack_reused_as_transpose=False)
+                emit(cases[case])
+        if name == "gat":
+            rec.update(gat_oracle_check(task, ds))
+        emit(rec)
+        launches[f"baseline_{name}"] = rec["launches"]["ell_spmm"]
+        stage_s[name] = time.perf_counter() - t0
+        del task
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    task, rec = baseline_run(ds, "gcn", {**BASELINE_RUNS[0][1], **CLUSTER}, tc)
+    per_batch = [6 if isinstance(cb.adj_dev, DifferentiableAdj) else 0
+                 for cb in task.cluster_batches]
+    per_epoch = sum(per_batch) + 3
+    check_baseline_launches("cluster gcn", rec, 0, per_epoch)
+    check(all(np.isfinite(rec["losses"])), f"cluster gcn losses {rec['losses']}")
+    rec.update(phase="baseline", run="gcn_cluster", **BASELINE_RUNS[0][1], **CLUSTER,
+               batches=len(per_batch), batches_on_the_kernel=sum(p > 0 for p in per_batch),
+               batch_nodes=[int(cb.node_ids.numel()) for cb in task.cluster_batches],
+               launches_per_epoch=per_epoch)
+    emit(rec)
+    launches["baseline_gcn_cluster"] = rec["launches"]["ell_spmm"]
+    stage_s["gcn_cluster"] = time.perf_counter() - t0
+    del task
+    torch.cuda.empty_cache()
+    emit({"phase": "baseline_stages", "seconds": stage_s})
+    return {"launches": launches, "cases": cases}
+
+
+# --- single-card out-of-core propagation and training ---------------------------
+
+OOC_SHARDS = 8
+OOC_STEPS = 3
+OOC_EPOCHS = 5
+# a dest_outer run's device memory over its start: the accumulator, the
+# source block (and its bf16 copy), the kernel's output and one spare block,
+# plus the largest bucket (its pack, and the tail's gathered and scaled rows)
+OOC_SPARE = 1 << 20
+
+
+def ooc_memory_bound(meta, f: int) -> tuple:
+    """(bound in bytes, the largest bucket's bytes) for a ``dest_outer``
+    hop: ``4 * block * F * 4`` bytes of blocks, plus the largest bucket's
+    pack and tail temporaries, plus ``OOC_SPARE``. Packs every bucket on
+    the host, as the propagation does."""
+    from ssrg_torch.parallel.outofcore import _CHUNK, bucket_edges, pack_bucket
+
+    largest = 0
+    for r, c, v, off in bucket_edges(meta):
+        for j in range(meta.num_shards):
+            if off[j] == off[j + 1]:
+                continue
+            ec, ev, tail = pack_bucket(r[off[j]:off[j + 1]], c[off[j]:off[j + 1]],
+                                       v[off[j]:off[j + 1]], meta.block)
+            nbytes = ec.nbytes + ev.nbytes
+            if tail is not None:
+                nbytes += sum(a.nbytes for a in tail) + 2 * min(tail[0].size, _CHUNK) * f * 4
+            largest = max(largest, nbytes)
+    return 4 * meta.block * f * 4 + largest + OOC_SPARE, largest
+
+
+def ooc_hop(hop_dirs, meta) -> "np.ndarray":
+    return np.concatenate([np.load(os.path.join(hop_dirs[-1], f"block{i}.npy"))
+                           for i in range(meta.num_shards)])[: meta.num_nodes]
+
+
+def phase_ooc(graph: dict = None) -> dict:
+    """Out-of-core propagation and training on the ``train`` cell's graph:
+    its edges (one direction of each pair), features and labels written as
+    ``.npy`` under a temporary directory, spooled into ``OOC_SHARDS``
+    shards, K = 3 hops block at a time on the card under both schedules,
+    the ``coo`` local engine and the bf16 transfer, each held to the
+    in-core hybrid ``propagate`` (f32 1e-4 abs; bf16 within
+    ``K*2^-7*(|A|^K|X|)``), ELL launches per hop equal to the non-empty
+    buckets, ``dest_outer``'s device memory within
+    :func:`ooc_memory_bound`; then ``run_outofcore`` SGC and GAMLP on the
+    artifacts (reused, not rewritten), best val >= 0.25. The kernel timed
+    on the largest bucket's pack. Returns the launches and the case."""
+    import shutil
+
+    import scipy.sparse as sp
+    import torch
+
+    from ssrg_torch.configs.config import ModelConfig, TrainingConfig
+    from ssrg_torch.data.synthetic import planetoid_like
+    from ssrg_torch.ops.normalize import sym_norm
+    from ssrg_torch.ops.propagate import propagate
+    from ssrg_torch.ops.sparse import device_adjacency
+    from ssrg_torch.parallel.outofcore import bucket_edges, outofcore_propagate, pack_bucket
+    from ssrg_torch.train.outofcore_task import ensure_spooled, run_outofcore
+
+    stage_s = {}
+    t0 = time.perf_counter()
+    ds = planetoid_like(**(graph or TRAIN_GRAPH))
+    upper = sp.triu(ds.adj, k=1).tocoo()
+    edges = np.stack([upper.row, upper.col]).astype(np.int64)
+    adj = sp.csr_matrix((np.ones(edges.shape[1], np.float32), (edges[0], edges[1])),
+                        shape=ds.adj.shape)
+    adj_norm = sym_norm(((adj + adj.T) > 0).astype(np.float32), 0.5)
+    x = np.asarray(ds.x, np.float32)
+    n, f = x.shape
+    stage_s["data"] = time.perf_counter() - t0
+    launches, cases, runs = {}, {}, {}
+    with tempfile.TemporaryDirectory() as root:
+        paths = {k: os.path.join(root, f"{k}.npy") for k in ("edges", "features", "labels")}
+        t0 = time.perf_counter()
+        np.save(paths["edges"], edges)
+        np.save(paths["features"], x)
+        np.save(paths["labels"], np.asarray(ds.y, np.int64))
+        stage_s["write_npy"] = time.perf_counter() - t0
+        work = os.path.join(root, "work")
+        t0 = time.perf_counter()
+        meta = ensure_spooled(paths["edges"], n, OOC_SHARDS, work)
+        spool_s = time.perf_counter() - t0
+        check(meta.num_edges == adj_norm.nnz,
+              f"ooc: {meta.num_edges} spooled entries, the in-core operator has {adj_norm.nnz}")
+        t0 = time.perf_counter()
+        incore = propagate(device_adjacency(adj_norm, "hybrid", device="cuda"), x, OOC_STEPS,
+                           device="cuda")[-1].cpu().numpy()
+        mag = np.abs(x).astype(np.float64)
+        for _ in range(OOC_STEPS):
+            mag = adj_norm @ mag
+        stage_s["incore_and_magnitude"] = time.perf_counter() - t0
+        bound_bytes, largest = ooc_memory_bound(meta, f)
+        variants = (  # (name, work dir, keywords, ELL launches a hop?)
+            ("source_outer_f32", work, dict(mode="source_outer"), True),
+            ("dest_outer_f32", os.path.join(root, "dest"),
+             dict(acc_budget_bytes=meta.block * f * 4), True),
+            ("coo_f32", os.path.join(root, "coo"), dict(local_engine="coo"), False),
+            ("source_outer_bf16", os.path.join(root, "bf16"),
+             dict(mode="source_outer", transfer_dtype="bfloat16"), True),
+        )
+        for name, wdir, kw, on_kernel in variants:
+            stats = {}
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            reset_launches()
+            t0 = time.perf_counter()
+            hop_dirs = outofcore_propagate(meta, paths["features"], OOC_STEPS, wdir,
+                                           device="cuda", stats=stats, **kw)
+            seconds = time.perf_counter() - t0
+            peak = torch.cuda.max_memory_allocated() - base
+            got = read_launches()
+            hop = ooc_hop(hop_dirs, meta)
+            err = np.abs(hop.astype(np.float64) - incore)
+            if name.endswith("bf16"):
+                tol = OOC_STEPS * 2.0 ** -7 * mag
+                check(bool((err <= tol + 1e-30).all()),
+                      f"ooc {name}: hop K beyond K*2^-7*(|A|^K|X|) (max abs err {err.max()})")
+            else:
+                check(float(err.max()) <= 1e-4, f"ooc {name}: hop K off in-core by {err.max()}")
+            per_hop = stats["nonempty_buckets"] if on_kernel else 0
+            check(got == {"ell_spmm": per_hop * OOC_STEPS, "banded_spmm": 0, "rest_spmm": 0},
+                  f"ooc {name}: launched {got}, expected ell_spmm {per_hop} a hop "
+                  f"({stats['nonempty_buckets']} non-empty buckets)")
+            rec = {"phase": "ooc", "run": name, "nodes": n, "features": f, "shards": OOC_SHARDS,
+                   "block": meta.block, "steps": OOC_STEPS, **kw, **stats, "seconds": seconds,
+                   "hop_k_max_abs_err": float(err.max()), "launches": got,
+                   "launches_per_hop": per_hop, "peak_mem_over_start_bytes": peak}
+            if stats["mode"] == "dest_outer":
+                check(peak <= bound_bytes,
+                      f"ooc {name}: {peak} bytes of device memory over the start, above the "
+                      f"O(block*F + bucket) bound of {bound_bytes}")
+                rec.update(memory_bound_bytes=bound_bytes, largest_bucket_bytes=largest)
+            emit(rec)
+            runs[name] = rec
+            if name == "source_outer_f32":
+                launches["ooc_source_outer"] = got["ell_spmm"]
+            if wdir != work:
+                shutil.rmtree(wdir)
+        check(runs["dest_outer_f32"]["mode"] == "dest_outer", "ooc: the small budget did not "
+              "pick dest_outer")
+        # the kernel on the largest bucket's pack against its [block, F] source block
+        buckets = bucket_edges(meta)
+        size, i, j = max((int(off[j + 1] - off[j]), i, j) for i, (_, _, _, off)
+                         in enumerate(buckets) for j in range(meta.num_shards))
+        r, c, v, off = buckets[i]
+        ec, ev, _ = pack_bucket(r[off[j]:off[j + 1]], c[off[j]:off[j + 1]],
+                                v[off[j]:off[j + 1]], meta.block)
+        xj = torch.as_tensor(np.load(os.path.join(work, "hop0", f"block{j}.npy")), device="cuda")
+        case = ell_case("ooc_bucket_f128", torch.as_tensor(ec, device="cuda"),
+                        torch.as_tensor(ev, device="cuda"), xj, timed=True)
+        case.update(phase="ooc", bucket=[i, j], bucket_edges=size)
+        emit(case)
+        cases["ooc_bucket_f128"] = case
+        hop_file = os.path.join(work, f"hop{OOC_STEPS}", "block0.npy")
+        spool_file = os.path.join(meta.spool_dir, "shard_0.bin")
+        stamps = (os.path.getmtime(hop_file), os.path.getmtime(spool_file))
+        for model, lr in (("sgc", 0.05), ("gamlp", 0.01)):
+            t0 = time.perf_counter()
+            result = run_outofcore(
+                paths["edges"], paths["features"], paths["labels"], work,
+                num_shards=OOC_SHARDS, model_cfg=ModelConfig(model_name=model,
+                                                             prop_steps=OOC_STEPS),
+                train_cfg=TrainingConfig(num_epochs=OOC_EPOCHS, lr=lr,
+                                         train_batch_size=10_000, seed=SEED),
+                train_idx=ds.train_idx, val_idx=ds.val_idx, test_idx=ds.test_idx,
+                device="cuda")
+            seconds = time.perf_counter() - t0
+            check((os.path.getmtime(hop_file), os.path.getmtime(spool_file)) == stamps,
+                  f"ooc {model}: the spool or the hops were written again")
+            check(result.best_val >= 0.25, f"ooc {model}: best val {result.best_val} < 0.25")
+            epoch_ms = [1e3 * t for t in result.history["epoch_s"]]
+            check(all(np.isfinite(result.history["loss"])),
+                  f"ooc {model} losses {result.history['loss']}")
+            emit({"phase": "ooc", "run": f"train_{model}", "seconds": seconds,
+                  "best_val": result.best_val, "best_test": result.best_test,
+                  "epochs": OOC_EPOCHS, "train_batch_size": 10_000,
+                  "losses": result.history["loss"], "epoch_ms": epoch_ms,
+                  "epoch_ms_after_first": float(np.median(epoch_ms[1:]))})
+            stage_s[f"train_{model}"] = seconds
+    emit({"phase": "ooc_stages", "spool_s": spool_s, "seconds": stage_s})
+    return {"launches": launches, "cases": cases}
+
+
 # --- the bench entry point -----------------------------------------------------
 
 # the bench's functions that each drive one tier, and the kernel each launches
@@ -2491,11 +3026,16 @@ def main() -> int:
     torch.cuda.empty_cache()
     robust = phase_robust(trace_root)
     torch.cuda.empty_cache()
+    baseline = phase_baseline()
+    torch.cuda.empty_cache()
+    ooc = phase_ooc()
+    torch.cuda.empty_cache()
     bench_run = phase_bench(os.path.join(trace_root, "bench_headline"))
     bench_launches = bench_run["launches"]
     # each path's launches, counted from 0 just before it and read just after
     by_path = {"ell_spmm": {"slice": launches["ell_spmm"], **train["launches"],
                             **spectral["launches"], **robust["launches"],
+                            **baseline["launches"], **ooc["launches"],
                             "bench_headline": bench_launches["ell_spmm"]},
                "banded_spmm": {"banded_f32": launches["banded_spmm"],
                                "bench_banded": bench_launches["banded_spmm"]},
@@ -2525,6 +3065,11 @@ def main() -> int:
                                     ("f", "width", "ms", "plain_ms", "bound_ms", "bound_by",
                                      "bound_share", "library_ms", "max_abs_err")}
                              for case, rec in robust["cases"].items()}}
+           if name == "ell_spmm" else {}),
+        **({"baseline_cases": {case: {k: rec[k] for k in
+                                      ("f", "width", "ms", "plain_ms", "bound_ms", "bound_by",
+                                       "bound_share", "library_ms", "max_abs_err")}
+                               for case, rec in {**baseline["cases"], **ooc["cases"]}.items()}}
            if name == "ell_spmm" else {}),
         **({"bench_dense_case": {k: bench_run["dense"][k] for k in
                                  ("ms", "plain_ms", "bound_ms", "bound_by", "bound_share",

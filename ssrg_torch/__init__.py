@@ -15,8 +15,11 @@ the host graph builders on an OpenMP C++ library (:mod:`ssrg_torch.native`,
 ``csrc/graphbuild.cpp``), the K-hop bench (:mod:`ssrg_torch.bench`), the
 logger with its ``torch.profiler`` trace (:mod:`ssrg_torch.logger`), the
 dataset loaders (:mod:`ssrg_torch.data`), the robustness pipeline
-(:mod:`ssrg_torch.pipelines`: sparsify, then repair features and edges)
-and link classification (:class:`ssrg_torch.train.LinkClassification`).
+(:mod:`ssrg_torch.pipelines`: sparsify, then repair features and edges),
+link classification (:class:`ssrg_torch.train.LinkClassification`), the
+message-passing baselines (:class:`ssrg_torch.train.BaselineTask`) and
+single-card out-of-core propagation and training
+(:mod:`ssrg_torch.parallel.outofcore`, :mod:`ssrg_torch.train.outofcore_task`).
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
 """
 

@@ -18,7 +18,9 @@ of the port's modules, whose submodules carry the flax names (``msg_op/jk``,
   over as it is, under the same name;
 - a link head's tree (``edge_fc``, and the GCN's ``fc2_edge``, both
   ``Dense``) carries over as any other: the port's link heads
-  (``load_model(..., link=True)``) hold the same submodules.
+  (``load_model(..., link=True)``) hold the same submodules;
+- the baseline GAT's attention vectors ``a_src_{i}``/``a_dst_{i}`` (``[1,
+  H, D]`` in both packages) carry over as they are.
 
 ``params_to_jax`` is the inverse: it turns a state dict into the variables
 dict, so that the port writes checkpoints the reference reads. There a
@@ -31,6 +33,8 @@ from __future__ import annotations
 from collections.abc import Mapping
 from typing import Dict
 
+import re
+
 import numpy as np
 import torch
 
@@ -39,6 +43,8 @@ _VERBATIM = ("bias", "slope", "hop_weight", "hop_node_weight", "subgraph_weight"
 # a module holding this parameter is a wavelet layer, whose ``weight`` is
 # flax's ``weight`` [in, out], not a Dense kernel
 _WAVELET_MARK = "theta"
+# the baseline GAT's per-layer attention vectors
+_ATTENTION = re.compile(r"a_(src|dst)_\d+")
 _STATS = {"mean": "running_mean", "var": "running_var"}
 
 
@@ -58,7 +64,8 @@ def _walk(node: Mapping, prefix: str, out: Dict[str, torch.Tensor], stats: bool)
             out[f"{prefix}weight"] = torch.tensor(arr.T)
         elif name == "scale":
             out[f"{prefix}weight"] = torch.tensor(arr)
-        elif name in _VERBATIM or (name == "weight" and _WAVELET_MARK in node):
+        elif (name in _VERBATIM or _ATTENTION.fullmatch(name)
+              or (name == "weight" and _WAVELET_MARK in node)):
             out[f"{prefix}{name}"] = torch.tensor(arr)
         else:
             raise KeyError(f"no port mapping for flax parameter {prefix}{name}")
@@ -95,7 +102,7 @@ def params_to_jax(state_dict: Mapping[str, torch.Tensor]) -> dict:
             pass
         elif name == "weight":
             name, arr = ("kernel", arr.T) if arr.ndim == 2 else ("scale", arr)
-        elif name not in _VERBATIM:
+        elif name not in _VERBATIM and not _ATTENTION.fullmatch(name):
             raise KeyError(f"no flax mapping for state-dict entry {key}")
         node = variables.setdefault(collection, {})
         for part in path:

@@ -1,0 +1,298 @@
+"""Message-passing baselines (counterpart of ``ssrg_tpu/models/baselines.py``):
+MLP, robust MLP (for the triplet loss), GCN, GraphSAGE, GAT, SGC and SIGN.
+
+Unlike the precompute zoo, each layer of GCN, SAGE and GAT runs its own
+graph product:
+
+- GCN and SAGE call ``adj.spmm`` on the device adjacency. For training that
+  is a :func:`ssrg_torch.ops.sparse.differentiable_adjacency`: the ELL
+  kernel forward, and backward on the pack of ``A^T`` (SAGE's row-mean
+  ``D^-1 A`` is not symmetric, so its backward has a pack of its own).
+- GAT scores every edge of an :class:`EdgeList` and takes a per-destination
+  softmax with segment ops (``scatter_reduce``, ``index_add``): plain tensor
+  code, as it is XLA in the reference.
+
+Submodule and parameter names are the flax names (``lin_{i}``, ``bn_{i}``,
+``lin_out``, ``conv_{i}``, ``conv_out``, ``self_{i}``, ``nbr_{i}``,
+``w_{i}``, ``a_src_{i}``, ``a_dst_{i}``, ``lin``, ``hop_{k}``, ``out``), so
+that :mod:`ssrg_torch.convert` carries the reference's parameters over.
+flax infers input widths at the first call; these modules take them at
+construction. Dropout draws from the generator that
+:func:`ssrg_torch.models.heads.bind_generator` binds, BatchNorm has flax's
+semantics (:class:`ssrg_torch.models.heads.BatchNorm`).
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, replace
+from typing import Optional, Tuple
+
+import numpy as np
+import scipy.sparse as sp
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ssrg_torch.models.heads import BatchNorm, Dropout
+from ssrg_torch.ops.sddmm import edge_softmax
+from ssrg_torch.utils import DeviceLike, init_dense_, resolve_device, variance_scaling_
+
+
+@dataclass
+class EdgeList:
+    """COO edge list for edge-level ops (GAT attention): ``row`` the
+    destination, ``col`` the source, ``mask`` 1 on real edges and 0 on the
+    padding that rounds the length up to a multiple of ``pad_to`` (padding
+    entries point at node 0). The padding keeps the packs equal entry for
+    entry to the reference's; it costs the port nothing else."""
+
+    row: torch.Tensor   # int32 [E_pad] destination
+    col: torch.Tensor   # int32 [E_pad] source
+    mask: torch.Tensor  # f32 [E_pad]
+    num_nodes: int
+
+    @classmethod
+    def from_scipy(cls, adj: sp.spmatrix, pad_to: int = 512,
+                   e_pad: Optional[int] = None) -> "EdgeList":
+        """The entries of ``adj`` in its COO order, on the host; ``e_pad``
+        forces the padded length."""
+        coo = adj.tocoo()
+        e = coo.nnz
+        if e_pad is None:
+            e_pad = ((e + pad_to - 1) // pad_to) * pad_to if e else pad_to
+        elif e_pad < e:
+            raise ValueError(f"e_pad {e_pad} < nnz {e}")
+        row = np.zeros(e_pad, np.int32)
+        col = np.zeros(e_pad, np.int32)
+        mask = np.zeros(e_pad, np.float32)
+        row[:e] = coo.row
+        col[:e] = coo.col
+        mask[:e] = 1.0
+        return cls(torch.from_numpy(row), torch.from_numpy(col), torch.from_numpy(mask),
+                   adj.shape[0])
+
+    def to(self, device: DeviceLike) -> "EdgeList":
+        dev = resolve_device(device)
+        return replace(self, row=self.row.to(dev), col=self.col.to(dev),
+                       mask=self.mask.to(dev))
+
+
+class BaselineMLP(nn.Module):
+    """(num_layers-1) x [Linear -> BatchNorm -> ReLU -> Dropout] -> Linear."""
+
+    def __init__(self, feat_dim: int, hidden_dim: int, output_dim: int,
+                 num_layers: int = 3, dropout: float = 0.5):
+        super().__init__()
+        self.num_layers = num_layers
+        dims = [feat_dim] + [hidden_dim] * (num_layers - 1)
+        for i in range(num_layers - 1):
+            self.add_module(f"lin_{i}", nn.Linear(dims[i], hidden_dim))
+            self.add_module(f"bn_{i}", BatchNorm(hidden_dim))
+        self.lin_out = nn.Linear(dims[-1], output_dim)
+        self.dropout = Dropout(dropout)
+        self.reset_parameters()
+
+    def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
+        for i in range(self.num_layers - 1):
+            init_dense_(getattr(self, f"lin_{i}"), generator=generator)
+            getattr(self, f"bn_{i}").reset_parameters()
+        init_dense_(self.lin_out, generator=generator)
+
+    def forward(self, x, adj=None):
+        for i in range(self.num_layers - 1):
+            x = getattr(self, f"bn_{i}")(getattr(self, f"lin_{i}")(x))
+            x = self.dropout(torch.relu(x))
+        return self.lin_out(x)
+
+
+class RobustMLP(nn.Module):
+    """The robust MLP: returns ``(L2-normalized hidden, log-probabilities)``
+    for the class-wise margin triplet loss. The hidden norm's gradient at an
+    all-zero row is 0 here (torch's ``vector_norm``); the reference's
+    ``jnp.linalg.norm`` gives NaN, which ReLU's gradient stops before the
+    parameters (ROADMAP.md section 3)."""
+
+    def __init__(self, feat_dim: int, hidden_dim: int, output_dim: int,
+                 num_layers: int = 3, dropout: float = 0.5):
+        super().__init__()
+        self.num_layers = num_layers
+        dims = [feat_dim] + [hidden_dim] * (num_layers - 1)
+        for i in range(num_layers - 1):
+            self.add_module(f"lin_{i}", nn.Linear(dims[i], hidden_dim))
+        self.lin_out = nn.Linear(dims[-1], output_dim)
+        self.dropout = Dropout(dropout)
+        self.reset_parameters()
+
+    def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
+        for i in range(self.num_layers - 1):
+            init_dense_(getattr(self, f"lin_{i}"), generator=generator)
+        init_dense_(self.lin_out, generator=generator)
+
+    def forward(self, x, adj=None) -> Tuple[torch.Tensor, torch.Tensor]:
+        for i in range(self.num_layers - 1):
+            x = self.dropout(torch.relu(getattr(self, f"lin_{i}")(x)))
+        norm = torch.linalg.vector_norm(x, dim=1, keepdim=True)
+        hidden = x / torch.clamp_min(norm, 1e-12)
+        return hidden, F.log_softmax(self.lin_out(x), dim=1)
+
+
+class BaselineGCN(nn.Module):
+    """Multi-layer GCN over a sym-normalized device adjacency:
+    ``x <- dropout(relu(A conv_i(x)))``, then ``A conv_out(x)``."""
+
+    def __init__(self, feat_dim: int, hidden_dim: int, output_dim: int,
+                 num_layers: int = 2, dropout: float = 0.5):
+        super().__init__()
+        self.num_layers = num_layers
+        dims = [feat_dim] + [hidden_dim] * (num_layers - 1)
+        for i in range(num_layers - 1):
+            self.add_module(f"conv_{i}", nn.Linear(dims[i], hidden_dim))
+        self.conv_out = nn.Linear(dims[-1], output_dim)
+        self.dropout = Dropout(dropout)
+        self.reset_parameters()
+
+    def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
+        for i in range(self.num_layers - 1):
+            init_dense_(getattr(self, f"conv_{i}"), generator=generator)
+        init_dense_(self.conv_out, generator=generator)
+
+    def forward(self, x, adj):
+        for i in range(self.num_layers - 1):
+            x = self.dropout(torch.relu(adj.spmm(getattr(self, f"conv_{i}")(x))))
+        return adj.spmm(self.conv_out(x))
+
+
+class BaselineSAGE(nn.Module):
+    """GraphSAGE-mean: ``h' = self_i(h) + nbr_i(P h)`` with ``P = D^-1 A``
+    the device adjacency. The first layer's ``P x`` multiplies the raw
+    features, which take no gradient: only the later layers' SpMMs run a
+    backward."""
+
+    def __init__(self, feat_dim: int, hidden_dim: int, output_dim: int,
+                 num_layers: int = 2, dropout: float = 0.5):
+        super().__init__()
+        self.num_layers = num_layers
+        dims = [feat_dim] + [hidden_dim] * (num_layers - 1) + [output_dim]
+        for i in range(num_layers):
+            self.add_module(f"self_{i}", nn.Linear(dims[i], dims[i + 1]))
+            self.add_module(f"nbr_{i}", nn.Linear(dims[i], dims[i + 1], bias=False))
+        self.dropout = Dropout(dropout)
+        self.reset_parameters()
+
+    def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
+        for i in range(self.num_layers):
+            init_dense_(getattr(self, f"self_{i}"), generator=generator)
+            init_dense_(getattr(self, f"nbr_{i}"), generator=generator)
+
+    def forward(self, x, adj):
+        for i in range(self.num_layers):
+            neigh = adj.spmm(x)
+            x = getattr(self, f"self_{i}")(x) + getattr(self, f"nbr_{i}")(neigh)
+            if i < self.num_layers - 1:
+                x = self.dropout(torch.relu(x))
+        return x
+
+
+class BaselineGAT(nn.Module):
+    """GAT: ``heads``-head attention layers over an :class:`EdgeList`,
+    heads concatenated between layers and averaged at the output layer.
+    ``hidden_dim`` is the width of one head."""
+
+    def __init__(self, feat_dim: int, hidden_dim: int, output_dim: int,
+                 num_layers: int = 2, heads: int = 8, dropout: float = 0.5,
+                 negative_slope: float = 0.2):
+        super().__init__()
+        self.num_layers, self.heads, self.negative_slope = num_layers, heads, negative_slope
+        self.dims = [hidden_dim] * (num_layers - 1) + [output_dim]
+        in_dim = feat_dim
+        for i, d in enumerate(self.dims):
+            self.add_module(f"w_{i}", nn.Linear(in_dim, heads * d, bias=False))
+            self.register_parameter(f"a_src_{i}", nn.Parameter(torch.empty(1, heads, d)))
+            self.register_parameter(f"a_dst_{i}", nn.Parameter(torch.empty(1, heads, d)))
+            in_dim = heads * d
+        self.dropout = Dropout(dropout)
+        self.reset_parameters()
+
+    def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
+        for i, d in enumerate(self.dims):
+            init_dense_(getattr(self, f"w_{i}"), generator=generator)
+            for name in (f"a_src_{i}", f"a_dst_{i}"):
+                # flax's xavier_uniform on (1, H, D): fan_in H, fan_out D
+                variance_scaling_(getattr(self, name), 1.0, "fan_avg", "uniform",
+                                  fan_in=self.heads, fan_out=d, generator=generator)
+
+    def forward(self, x, edges: EdgeList):
+        h, n = self.heads, edges.num_nodes
+        row, col = edges.row.long(), edges.col.long()
+        for i, d in enumerate(self.dims):
+            last = i == self.num_layers - 1
+            z = getattr(self, f"w_{i}")(x).view(n, h, d)
+            score_src = (z * getattr(self, f"a_src_{i}")).sum(-1)   # [N, H]
+            score_dst = (z * getattr(self, f"a_dst_{i}")).sum(-1)
+            e = F.leaky_relu(score_dst.index_select(0, row) + score_src.index_select(0, col),
+                             self.negative_slope)
+            alpha = self.dropout(edge_softmax(e, row, edges.mask, n))  # [E, H]
+            msgs = z.index_select(0, col) * alpha[..., None]            # [E, H, D]
+            out = z.new_zeros((n, h, d)).index_add(0, row, msgs)
+            if last:
+                x = out.mean(dim=1)
+            else:
+                x = self.dropout(F.elu(out.reshape(n, h * d)))
+        return x
+
+
+class BaselineSGC(nn.Module):
+    """SGC's head over the K-hop precomputed feature: one linear map."""
+
+    def __init__(self, feat_dim: int, output_dim: int):
+        super().__init__()
+        self.lin = nn.Linear(feat_dim, output_dim)
+        self.reset_parameters()
+
+    def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
+        init_dense_(self.lin, generator=generator)
+
+    def forward(self, x_propagated, adj=None):
+        return self.lin(x_propagated)
+
+
+class BaselineSIGN(nn.Module):
+    """SIGN: one linear map with ReLU for each hop of the stack ``[K+1, N,
+    F]``, concatenated, dropout, then the output map."""
+
+    def __init__(self, feat_dim: int, hidden_dim: int, output_dim: int, num_hops: int,
+                 dropout: float = 0.5):
+        super().__init__()
+        self.num_hops = num_hops
+        for k in range(num_hops):
+            self.add_module(f"hop_{k}", nn.Linear(feat_dim, hidden_dim))
+        self.out = nn.Linear(num_hops * hidden_dim, output_dim)
+        self.dropout = Dropout(dropout)
+        self.reset_parameters()
+
+    def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
+        for k in range(self.num_hops):
+            init_dense_(getattr(self, f"hop_{k}"), generator=generator)
+        init_dense_(self.out, generator=generator)
+
+    def forward(self, hops, adj=None):
+        x = torch.cat([torch.relu(getattr(self, f"hop_{k}")(hops[k]))
+                       for k in range(hops.shape[0])], dim=-1)
+        return self.out(self.dropout(x))
+
+
+def triplet_loss(hidden: torch.Tensor, labels: torch.Tensor, idx: torch.Tensor,
+                 num_classes: int, margin: float = 1.0) -> torch.Tensor:
+    """Class-wise margin triplet loss: pull each node toward its class
+    centroid, push it from the nearest other centroid. A node at zero
+    distance from its centroid (a class with one node) gets gradient 0
+    here; the reference's ``jnp.linalg.norm`` gives NaN (ROADMAP.md
+    section 3)."""
+    h = hidden[idx]
+    onehot = F.one_hot(labels[idx], num_classes).to(h.dtype)           # [B, C]
+    counts = torch.clamp_min(onehot.sum(0), 1.0)
+    centroids = (onehot.T @ h) / counts[:, None]                        # [C, D]
+    d = torch.linalg.vector_norm(h[:, None, :] - centroids[None], dim=-1)  # [B, C]
+    d_pos = (d * onehot).sum(1)
+    d_neg = torch.where(onehot > 0, torch.full_like(d, float("inf")), d).amin(dim=1)
+    return torch.clamp_min(d_pos - d_neg + margin, 0.0).mean()

@@ -44,12 +44,13 @@ def init_dense_(layer: nn.Linear, scale: float = 1.0, mode: str = "fan_in",
                 distribution: str = "truncated_normal",
                 generator: Optional[torch.Generator] = None) -> None:
     """Initialize a Linear as a flax ``Dense``: variance-scaled kernel
-    (default lecun_normal, flax's own default) and zero bias."""
+    (default lecun_normal, flax's own default) and zero bias (if any)."""
     variance_scaling_(layer.weight, scale, mode, distribution,
                       fan_in=layer.in_features, fan_out=layer.out_features,
                       generator=generator)
-    with torch.no_grad():
-        layer.bias.zero_()
+    if layer.bias is not None:
+        with torch.no_grad():
+            layer.bias.zero_()
 
 
 def init_dense_xavier_relu_(layer: nn.Linear,
