@@ -95,10 +95,23 @@ Phases, each printing JSON lines:
               equal to the non-empty buckets, ``dest_outer``'s device memory
               within an O(block*F + bucket) bound; ``run_outofcore`` SGC and
               GAMLP on the artifacts; the largest bucket's pack timed.
-10. bench   — ``ssrg_torch.bench.run_bench()`` at its defaults (169,343
+10. dist    — the distributed tier on ``torch.distributed`` over the
+              ``train`` graph, on a world of one NCCL rank in this process
+              (``phase_dist(ranks=4)`` runs one process per card on four):
+              K = 3 hops through ``dist_propagate`` (coo),
+              ``dist_propagate_hybrid`` (all-gather and halo),
+              ``dist_propagate_tiled`` (cluster-renumbered, halo),
+              ``dist_propagate_ring`` and ``dist_propagate_ring_hybrid``, each
+              held to in-core ``propagate`` with its ELL launches a hop
+              checked and its hops timed (exchange and local SpMM apart,
+              beside the bytes moved and ``comm_stats``); GAMLP through
+              ``build_spmd_context`` + ``run_epochs_scan`` (20 epochs, hops
+              against ``NodeClassification``'s precompute), and the graph
+              spooled and loaded by ``build_spmd_context_from_spool``.
+11. bench   — ``ssrg_torch.bench.run_bench()`` at its defaults (169,343
               nodes, degree 13.7, F = 128, K = 3, 10 iterations): its JSON
-              line, each tier's kernel launches (headline: ELL, clustered:
-              rest, banded: banded), the headline hops traced with
+              line, each tier's kernel launches (headline and sharded: ELL,
+              clustered: rest, banded: banded), the headline hops traced with
               ``device_trace``, and the banded kernel against its plain
               version on the banded tier's dense pack, timed.
 
@@ -2886,10 +2899,306 @@ def phase_ooc(graph: dict = None) -> dict:
     return {"launches": launches, "cases": cases}
 
 
+# --- the distributed tier --------------------------------------------------------
+
+DIST_STEPS = 3
+DIST_EPOCHS = 20
+DIST_TOL = 1e-4      # hop K against in-core propagate (the out-of-core check's limit)
+DIST_SPOOL_TOL = 1e-5
+DIST_TIMED_RUNS = 5  # timed K-hop runs of each engine after its checked one
+# (run, its exchange, ELL launches a hop at D graph shards)
+DIST_ENGINES = (
+    ("coo", "all_gather", lambda d: 0),
+    ("hybrid_all_gather", "all_gather", lambda d: 1),
+    ("hybrid_halo", "halo", lambda d: 1),
+    ("tiled_cluster_halo", "halo", lambda d: 1),   # the rest's ELL term
+    ("ring", "ring", lambda d: 0),
+    ("ring_hybrid", "ring", lambda d: d),          # one a (self, source) bucket
+)
+
+
+def dist_graph(graph: dict = None) -> tuple:
+    """The ``train`` cell's graph, normalized: ``(ds, adj_norm, x)``."""
+    from ssrg_torch.data.synthetic import planetoid_like
+    from ssrg_torch.ops.normalize import sym_norm
+
+    ds = planetoid_like(**(graph or TRAIN_GRAPH))
+    return ds, sym_norm(ds.adj, 0.5), np.asarray(ds.x, np.float32)
+
+
+def dist_engine(name: str, mesh, adj_norm, x):
+    """``(sharded adjacency, this rank's features, propagate, extras)`` of
+    one engine at the mesh's graph axis; the tiled engine runs on the
+    cluster-renumbered graph, ``extras["inverse"]`` mapping old ids to new."""
+    from ssrg_torch.parallel import dist_spmm as D
+    from ssrg_torch.parallel.partition import (cluster_reorder_for_partition, partition_rows,
+                                               partition_rows_hybrid, partition_rows_tiled)
+
+    d = mesh.shape["graph"]
+    extras = {}
+    if name == "coo":
+        part = partition_rows(adj_norm, d)
+        adj, fn = D.shard_adjacency(part, mesh), D.dist_propagate
+    elif name.startswith("hybrid"):
+        part = partition_rows_hybrid(adj_norm, d, halo=name.endswith("halo"))
+        adj, fn = D.shard_adjacency_hybrid(part, mesh), D.dist_propagate_hybrid
+    elif name == "tiled_cluster_halo":
+        adj_c, x, _, inverse = cluster_reorder_for_partition(adj_norm, x)
+        part = partition_rows_tiled(adj_c, d, halo=True)
+        adj, fn = D.shard_adjacency_tiled(part, mesh), D.dist_propagate_tiled
+        extras.update(inverse=inverse, tiled_fraction=part.tiled_fraction)
+    elif name == "ring":
+        part = D.partition_rows_ring(adj_norm, d)
+        adj, fn = D.shard_adjacency_ring(part, mesh), D.dist_propagate_ring
+    else:
+        part = D.partition_rows_ring_hybrid(adj_norm, d)
+        adj, fn = D.shard_adjacency_ring_hybrid(part, mesh), D.dist_propagate_ring_hybrid
+    extras.update(block=part.block, halo_pad=getattr(part, "halo_pad", 0))
+    return adj, D.shard_features(x, part, mesh), fn, extras
+
+
+def dist_propagation(mesh, adj_norm, x, incore) -> dict:
+    """Every engine of the distributed tier at the mesh's graph axis: K hops
+    once counted (ELL launches a hop against the design) and checked (hop K
+    gathered to rank 0, within ``DIST_TOL`` of in-core ``propagate``), then
+    ``DIST_TIMED_RUNS`` times more timed, each hop split by CUDA events into
+    its exchange and its local SpMM (for the ring, the wait left exposed
+    after the bucket's SpMM), beside the bytes the exchange moved and
+    ``comm_stats``."""
+    import torch
+
+    from ssrg_torch.parallel.dist_spmm import all_gather_hops, comm_stats
+
+    d = mesh.shape["graph"]
+    n, f = x.shape
+    launches, hops_by_engine = {}, {}
+    for name, mode, per_hop in DIST_ENGINES:
+        t0 = time.perf_counter()
+        adj, xs, fn, extras = dist_engine(name, mesh, adj_norm, x)
+        torch.cuda.synchronize()
+        host_s = time.perf_counter() - t0
+        reset_launches()
+        hops = fn(adj, xs, DIST_STEPS)
+        torch.cuda.synchronize()
+        got = read_launches()
+        expected = {k: (per_hop(d) * DIST_STEPS if k == "ell_spmm" else 0) for k in KERNELS}
+        check(got == expected, f"dist {name} at D={d}: launched {got}, expected {expected}")
+        full = all_gather_hops(hops if name == "hybrid_all_gather" else hops[-1:], mesh)
+        stats = {}
+        for _ in range(DIST_TIMED_RUNS):
+            run = {}
+            fn(adj, xs, DIST_STEPS, stats=run)
+            for key, value in run.items():
+                stats[key] = stats.get(key, []) + value if isinstance(value, list) else value
+        rec = {"phase": "dist", "ranks": mesh.world_size, "graph_shards": d, "engine": name,
+               "nodes": n, "features": f, "steps": DIST_STEPS, "host_s": host_s,
+               "launches": got, "launches_per_hop": per_hop(d), **extras, **stats}
+        rec.pop("inverse", None)
+        if mesh.rank == 0:
+            hop_k = full[-1]
+            if "inverse" in extras:
+                hop_k = hop_k[torch.as_tensor(extras["inverse"], device=hop_k.device)]
+            err = float((hop_k[:n] - incore[-1]).abs().max())
+            check(err <= DIST_TOL, f"dist {name} at D={d}: hop K off in-core by {err}")
+            model = comm_stats(d, extras["block"], f, DIST_STEPS, mode=mode,
+                               halo_pad=extras["halo_pad"])
+            rec.update(hop_k_max_abs_err=err,
+                       comm_stats_bytes_per_hop=model["bytes_per_device_per_hop"],
+                       hop_ms_median=float(np.median(stats["hop_ms"])),
+                       exchange_ms_median=float(np.median(stats["exchange_ms"])),
+                       spmm_ms_median=float(np.median(stats["spmm_ms"])))
+            rec["exchange_gb_per_s"] = (stats["exchange_bytes_per_hop"]
+                                        / max(rec["exchange_ms_median"], 1e-9) / 1e6)
+            emit(rec)
+        if per_hop(d):
+            launches[f"dist_{name}"] = got["ell_spmm"]
+        if name == "hybrid_all_gather":
+            hops_by_engine[name] = full
+        del adj, xs, hops, full
+        torch.cuda.empty_cache()
+    return {"launches": launches, "hops": hops_by_engine.get("hybrid_all_gather")}
+
+
+def dist_training(mesh, ds, adj_norm, x, data_axis, graph_hops, workdir) -> dict:
+    """GAMLP (``ModelConfig`` defaults: hidden 256, K = 3) through
+    ``build_spmd_context`` on the mesh: 3 ELL launches a precompute and none
+    an epoch, ``DIST_EPOCHS`` of ``run_epochs_scan`` (finite losses, the same
+    on every rank; best val >= 0.25), ``run_steps(ctx, 2)`` finite, and the
+    hops within ``DIST_TOL`` of one-card ``NodeClassification``'s precompute
+    (and, given ``graph_hops``, of that earlier run's). Then the graph
+    spooled into one shard per graph position and
+    ``build_spmd_context_from_spool`` (hybrid, all-gather), whose hops are
+    the in-memory context's within ``DIST_SPOOL_TOL``."""
+    import scipy.sparse as sp
+    import torch
+    import torch.distributed as dist
+
+    from ssrg_torch.configs.config import ModelConfig, TrainingConfig
+    from ssrg_torch.data.streaming import StreamingGraphMeta, stream_partition
+    from ssrg_torch.models.zoo import load_model
+    from ssrg_torch.parallel.dist_spmm import all_gather_hops
+    from ssrg_torch.parallel.dist_train import (build_spmd_context, ensure_hops, run_epochs_scan,
+                                                run_steps)
+    from ssrg_torch.parallel.multihost import build_spmd_context_from_spool
+    from ssrg_torch.train import NodeClassification
+
+    n, f = x.shape
+    cfg = ModelConfig(model_name="gamlp")
+    k = cfg.prop_steps
+    launches = {}
+    t0 = time.perf_counter()
+    ctx = build_spmd_context(adj_norm, x, ds.y, ds.train_idx,
+                             load_model(cfg, f, NUM_CLASSES).module, mesh, k, lr=0.01,
+                             data_axis=data_axis, val_idx=ds.val_idx, test_idx=ds.test_idx,
+                             seed=SEED)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    reset_launches()
+    ensure_hops(ctx)
+    torch.cuda.synchronize()
+    launches["dist_spmd_precompute"] = read_launches()["ell_spmm"]
+    check(read_launches() == {"ell_spmm": k, "banded_spmm": 0, "rest_spmm": 0},
+          f"dist spmd: the precompute launched {read_launches()}, expected ell_spmm {k}")
+    reset_launches()
+    t0 = time.perf_counter()
+    ctx, res = run_epochs_scan(ctx, DIST_EPOCHS, seed=SEED)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    check(read_launches() == {"ell_spmm": 0, "banded_spmm": 0, "rest_spmm": 0},
+          f"dist spmd: the epochs launched {read_launches()}, expected none")
+    losses = torch.as_tensor(res.history[0], device=mesh.device)
+    every = losses.new_empty(mesh.world_size * losses.numel())
+    dist.all_gather_into_tensor(every, losses)
+    check(bool((every.view(mesh.world_size, -1) == losses).all()),
+          "dist spmd: the ranks' losses differ")
+    check(bool(np.isfinite(res.history[0]).all()), f"dist spmd losses {res.history[0]}")
+    check(res.best_val >= 0.25, f"dist spmd best val {res.best_val} < 0.25")
+    ctx, step_loss = run_steps(ctx, 2, seed=SEED)
+    check(np.isfinite(step_loss), f"dist spmd run_steps loss {step_loss}")
+    hops = all_gather_hops(ctx.hops, mesh, axis=None)[:, :n]
+    rec = {"phase": "dist", "run": "spmd_gamlp", "mesh": mesh.shape, "hidden": cfg.hidden_dim,
+           "prop_steps": k, "epochs": DIST_EPOCHS, "build_s": build_s, "train_s": train_s,
+           "epoch_ms": train_s / DIST_EPOCHS * 1e3, "losses": res.history[0].tolist(),
+           "best_val": res.best_val, "best_test": res.best_test, "best_epoch": res.best_epoch,
+           "run_steps_loss": step_loss, "comm": ctx.comm}
+    if mesh.rank == 0:
+        task = NodeClassification(ds, load_model(cfg, f, NUM_CLASSES), cfg,
+                                  TrainingConfig(num_epochs=1), device="cuda", run=False)
+        err = float((hops - task.prepared.inputs).abs().max())
+        check(err <= DIST_TOL, f"dist spmd hops off NodeClassification's by {err}")
+        rec["hops_vs_node_classification"] = err
+        if graph_hops is not None:
+            err = float((hops - graph_hops[:, :n]).abs().max())
+            check(err <= DIST_SPOOL_TOL, f"dist spmd hops off the graph-axis run's by {err}")
+            rec["hops_vs_graph_run"] = err
+        del task
+        emit(rec)
+
+    spool = os.path.join(workdir, "spool")
+    d = mesh.shape["graph"]
+    t0 = time.perf_counter()
+    if mesh.rank == 0:
+        upper = sp.triu(ds.adj, k=1).tocoo()
+        np.save(os.path.join(workdir, "edges.npy"),
+                np.stack([upper.row, upper.col]).astype(np.int64))
+        np.save(os.path.join(workdir, "features.npy"), x)
+        meta = stream_partition(os.path.join(workdir, "edges.npy"), n, d, spool)
+        fields = [meta.num_edges, meta.block]
+    else:
+        fields = [0, 0]
+    dist.broadcast_object_list(fields, src=0)
+    meta = StreamingGraphMeta(n, fields[0], fields[1], d, spool)
+    spool_s = time.perf_counter() - t0
+    reset_launches()
+    sctx = build_spmd_context_from_spool(meta, os.path.join(workdir, "features.npy"), ds.y,
+                                         ds.train_idx, load_model(cfg, f, NUM_CLASSES).module,
+                                         mesh, k, lr=0.01, data_axis=data_axis,
+                                         val_idx=ds.val_idx, test_idx=ds.test_idx, seed=SEED)
+    ensure_hops(sctx)
+    torch.cuda.synchronize()
+    launches["dist_spool_precompute"] = read_launches()["ell_spmm"]
+    check(read_launches()["ell_spmm"] == k,
+          f"dist spool: the precompute launched {read_launches()}, expected ell_spmm {k}")
+    shops = all_gather_hops(sctx.hops, mesh, axis=None)[:, :n]
+    err = float((shops - hops).abs().max())
+    check(err <= DIST_SPOOL_TOL, f"dist spool hops off the in-memory context's by {err}")
+    if mesh.rank == 0:
+        emit({"phase": "dist", "run": "spool", "graph_shards": d, "spool_s": spool_s,
+              "spooled_entries": meta.num_edges, "block": meta.block,
+              "hops_vs_in_memory": err})
+    return {"launches": launches}
+
+
+def _dist_rank(rank: int, world: int, store: str, graph: dict, workdir: str) -> dict:
+    """One rank of :func:`phase_dist`: joins the NCCL world (a world of one
+    in the calling process when ``world`` is 1), then runs the propagation
+    checks on a ``graph`` axis of every rank and GAMLP on a ``(graph,
+    data)`` mesh (``(2, 2)`` at four ranks)."""
+    import torch
+    import torch.distributed as dist
+
+    from ssrg_torch.ops.propagate import propagate
+    from ssrg_torch.ops.sparse import device_adjacency
+    from ssrg_torch.parallel.mesh import TIMEOUT, backend_for, make_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    if world > 1:   # a world of one starts in make_mesh
+        dev = torch.device("cuda", rank)
+        torch.cuda.set_device(dev)
+        dist.init_process_group(backend_for(dev), init_method=f"file://{store}", rank=rank,
+                                world_size=world, timeout=TIMEOUT)
+    t0 = time.perf_counter()
+    ds, adj_norm, x = dist_graph(graph)
+    data_s = time.perf_counter() - t0
+    mesh = make_mesh((world,), ("graph",), device="cuda")
+    incore = None
+    if rank == 0:
+        incore = propagate(device_adjacency(adj_norm, "hybrid", device="cuda"), x, DIST_STEPS,
+                           device="cuda")
+        emit({"phase": "dist", "ranks": world, "data_s": data_s, "nnz": int(adj_norm.nnz),
+              "backend": dist.get_backend()})
+    prop = dist_propagation(mesh, adj_norm, x, incore)
+    del incore
+    torch.cuda.empty_cache()
+    if world == 1:
+        train_mesh, data_axis, graph_hops = mesh, None, None
+    else:
+        train_mesh = make_mesh((world // 2, 2), ("graph", "data"), device="cuda")
+        data_axis, graph_hops = "data", prop["hops"]
+    train = dist_training(train_mesh, ds, adj_norm, x, data_axis, graph_hops, workdir)
+    dist.destroy_process_group()
+    return {"launches": {**prop["launches"], **train["launches"]}}
+
+
+def phase_dist(ranks: int = 1, graph: dict = None) -> dict:
+    """The distributed tier on ``planetoid_like(**TRAIN_GRAPH)`` (or
+    ``graph``) at K = 3: with ``ranks=1`` a world of one NCCL rank in this
+    process; with more, one process per card (``cuda:0..ranks-1``) joined
+    through a ``file://`` store. Propagation (every engine, against in-core
+    ``propagate``), SPMD GAMLP and spool ingestion, as :func:`_dist_rank`
+    sets out. The process group ends with the phase. Returns rank 0's ELL
+    launches by path (one rank in this process), else None."""
+    import torch.multiprocessing as mp
+
+    t0 = time.perf_counter()
+    out = None
+    with tempfile.TemporaryDirectory() as root:
+        store = os.path.join(root, "store")
+        if ranks == 1:
+            out = _dist_rank(0, 1, store, graph, root)
+        else:
+            mp.start_processes(_dist_rank, args=(ranks, store, graph, root), nprocs=ranks,
+                               join=True, start_method="spawn")
+    emit({"phase": "dist", "ranks": ranks, "seconds": time.perf_counter() - t0})
+    return out
+
+
 # --- the bench entry point -----------------------------------------------------
 
 # the bench's functions that each drive one tier, and the kernel each launches
 BENCH_TIERS = (("device_edges_per_s", "headline", "ell_spmm"),
+               ("sharded_tier_metrics", "sharded", "ell_spmm"),
                ("clustered_tier_metrics", "clustered", "rest_spmm"),
                ("banded_tier_metrics", "banded", "banded_spmm"))
 
@@ -2899,8 +3208,9 @@ def phase_bench(trace_dir: str) -> dict:
     Each tier's function is wrapped so that the launch counts are set to 0
     just before it and read just after. Checks: the headline, library,
     clustered and banded rates finite and positive; the headline graph's
-    nnz; each tier launched only its kernel, once a hop of each of its runs
-    (a warm run and two timed runs, and the traced run of the headline).
+    nnz; the sharded rate and its ratio to the headline's finite and
+    positive; each tier launched only its kernel, once a hop of each of its
+    runs (a warm run and two timed runs, and the traced run of the headline).
     Then the banded kernel held against its plain version on the banded
     tier's own pack and x (the locality phase holds the headline's ELL pack
     and the community rest, the other tiers' inputs), timed beside its bound
@@ -2933,8 +3243,8 @@ def phase_bench(trace_dir: str) -> dict:
     for name, _, _ in BENCH_TIERS:
         setattr(bench, name, originals[name])
 
-    for key in ("value", "library_edges_per_s", "clustered_edges_per_s",
-                "banded_pallas_edges_per_s"):
+    for key in ("value", "library_edges_per_s", "sharded_edges_per_s", "sharded_vs_bare",
+                "clustered_edges_per_s", "banded_pallas_edges_per_s"):
         check(math.isfinite(result[key]) and result[key] > 0, f"bench: {key} = {result[key]}")
     check(result["nnz"] == BENCH_NNZ, f"bench: nnz {result['nnz']}, expected {BENCH_NNZ}")
     hops = result["iters"] * result["prop_steps"]
@@ -2944,7 +3254,7 @@ def phase_bench(trace_dir: str) -> dict:
         expected = {name: (runs * hops if name == kernel else 0) for name in KERNELS}
         check(counted.get(tier) == expected,
               f"bench {tier} tier launched {counted.get(tier)}, expected {expected}")
-        launches[kernel] = counted[tier][kernel]
+        launches[tier] = counted[tier][kernel]
     emit({"phase": "bench", "seconds": seconds, "launches_by_tier": counted,
           "trace": check_trace(result["trace"], "bench headline")})
     torch.cuda.empty_cache()
@@ -3030,17 +3340,21 @@ def main() -> int:
     torch.cuda.empty_cache()
     ooc = phase_ooc()
     torch.cuda.empty_cache()
+    dist_run = phase_dist()
+    torch.cuda.empty_cache()
     bench_run = phase_bench(os.path.join(trace_root, "bench_headline"))
     bench_launches = bench_run["launches"]
     # each path's launches, counted from 0 just before it and read just after
     by_path = {"ell_spmm": {"slice": launches["ell_spmm"], **train["launches"],
                             **spectral["launches"], **robust["launches"],
                             **baseline["launches"], **ooc["launches"],
-                            "bench_headline": bench_launches["ell_spmm"]},
+                            **dist_run["launches"],
+                            "bench_headline": bench_launches["headline"],
+                            "bench_sharded": bench_launches["sharded"]},
                "banded_spmm": {"banded_f32": launches["banded_spmm"],
-                               "bench_banded": bench_launches["banded_spmm"]},
+                               "bench_banded": bench_launches["banded"]},
                "rest_spmm": {"tiled_bf16": launches["rest_spmm"],
-                             "bench_clustered": bench_launches["rest_spmm"]}}
+                             "bench_clustered": bench_launches["clustered"]}}
 
     emit({"kernels": [{
         "name": name, "route": "cuda", "source": f"ssrg_torch/csrc/{name}.cu",

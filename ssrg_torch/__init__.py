@@ -17,9 +17,12 @@ logger with its ``torch.profiler`` trace (:mod:`ssrg_torch.logger`), the
 dataset loaders (:mod:`ssrg_torch.data`), the robustness pipeline
 (:mod:`ssrg_torch.pipelines`: sparsify, then repair features and edges),
 link classification (:class:`ssrg_torch.train.LinkClassification`), the
-message-passing baselines (:class:`ssrg_torch.train.BaselineTask`) and
+message-passing baselines (:class:`ssrg_torch.train.BaselineTask`),
 single-card out-of-core propagation and training
-(:mod:`ssrg_torch.parallel.outofcore`, :mod:`ssrg_torch.train.outofcore_task`).
+(:mod:`ssrg_torch.parallel.outofcore`, :mod:`ssrg_torch.train.outofcore_task`)
+and the distributed tier on ``torch.distributed``
+(:mod:`ssrg_torch.parallel.dist_spmm`, :mod:`ssrg_torch.parallel.dist_train`,
+:mod:`ssrg_torch.parallel.multihost`).
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
 """
 

@@ -18,7 +18,10 @@ clock on the CPU), best of two timed runs after a warm one. Tiers:
   rest, as ``reorder_tiled`` + ``spmm_bf16`` packs it: ``torch.bmm`` tiles
   and the rest kernel ``csrc/rest_spmm.cu``;
 - banded: ``PallasBandedAdj`` over seeded random bf16 blocks with a bf16
-  window, on the banded kernel ``csrc/banded_spmm.cu``.
+  window, on the banded kernel ``csrc/banded_spmm.cu``;
+- sharded: the headline graph through the distributed tier's hybrid engine
+  on a mesh of one rank (``sharded_edges_per_s``; ``sharded_vs_bare`` is its
+  rate over the headline's).
 
 On the CPU the tiers shrink, and the numbers are only liveness checks. A
 tier that fails raises: the run fails with it.
@@ -320,13 +323,32 @@ def fast_tier_metrics(
     return out
 
 
-def sharded_tier_metrics(adj, num_features: int, prop_steps: int, iters: int = 10) -> dict:
-    """The reference's 1-shard mesh tier. Not ported: it needs the sharded
-    hybrid engine."""
-    raise NotImplementedError(
-        "bench: the sharded tier waits for the 'Parallel / out-of-core' item of "
-        "ROADMAP.md section 1 (partition, dist_spmm, mesh on torch.distributed)"
-    )
+def sharded_tier_metrics(adj, num_features: int, prop_steps: int, iters: int = 10,
+                         device: DeviceLike = "cuda") -> dict:
+    """The hybrid engine under the distributed tier, on a mesh of one rank
+    over the headline graph in this process (a world of one is started when
+    none runs, and ended after): :func:`dist_propagate_hybrid` one hop at a
+    time, ``iters * prop_steps`` hops timed as the headline's are, so that
+    ``sharded_edges_per_s`` over the headline ``value`` is the distributed
+    wrapper's overhead (its all-gather and hop stacking)."""
+    import torch.distributed as dist
+
+    from ssrg_torch.parallel.dist_spmm import dist_propagate_hybrid, shard_adjacency_hybrid
+    from ssrg_torch.parallel.mesh import make_mesh
+    from ssrg_torch.parallel.partition import partition_rows_hybrid
+
+    dev = resolve_device(device)
+    started = not dist.is_initialized()
+    mesh = make_mesh((1,), ("graph",), device=dev)
+    part = partition_rows_hybrid(adj, 1)
+    sharded = shard_adjacency_hybrid(part, mesh)
+    x = seeded_features(part.n_pad, num_features, dev, seed=2)
+    rate, spread = _scan_hops_edges_per_s(lambda h: dist_propagate_hybrid(sharded, h, 1)[1],
+                                          x, adj.nnz, iters * prop_steps)
+    del sharded, x
+    if started:
+        dist.destroy_process_group()
+    return {"sharded_edges_per_s": rate, "sharded_spread": spread}
 
 
 def run_bench(
@@ -340,8 +362,8 @@ def run_bench(
     device: DeviceLike = "cuda",
     trace_dir: Optional[str] = None,
 ) -> dict:
-    """The headline, the host baseline and the clustered and banded tiers;
-    prints the result as one JSON line when ``emit``."""
+    """The headline, the host baseline and the sharded, clustered and banded
+    tiers; prints the result as one JSON line when ``emit``."""
     dev = resolve_device(device)
     adj, x = make_benchmark_graph(num_nodes, avg_degree, num_features, SEED)
     diag: dict = {}
@@ -367,6 +389,8 @@ def run_bench(
     }
     if dev.type == "cuda":
         result["device_name"] = torch.cuda.get_device_name(dev)
+    result.update(sharded_tier_metrics(adj, num_features, prop_steps, iters, dev))
+    result["sharded_vs_bare"] = result["sharded_edges_per_s"] / rate
     del adj, x
     result.update(fast_tier_metrics(num_nodes, num_features, prop_steps, iters, dev))
     if emit:

@@ -1,21 +1,21 @@
-"""Scaling beyond one device's memory (counterpart of ``ssrg_tpu/parallel``).
+"""Scaling beyond one device (counterpart of ``ssrg_tpu/parallel``): the
+host-side row partitioners (:mod:`ssrg_torch.parallel.partition`), single-card
+out-of-core propagation (:mod:`ssrg_torch.parallel.outofcore`), and the
+distributed tier on ``torch.distributed``: meshes (:mod:`.mesh`), sharded
+K-hop propagation (:mod:`.dist_spmm`), SPMD training (:mod:`.dist_train`)
+and per-rank spool loading (:mod:`.multihost`).
 
-Ported: the host-side row partitioners (:mod:`ssrg_torch.parallel.partition`)
-and single-card out-of-core propagation (:mod:`ssrg_torch.parallel.outofcore`).
-The reference's distributed modules (``mesh``, ``dist_spmm``,
-``dist_train``, ``multihost``) are ROADMAP.md section 1, item 4: their names
-resolve here to a ``NotImplementedError`` that says so.
-
-Exports are lazy (PEP 562): importing this package imports neither module.
+Exports are lazy (PEP 562): importing this package imports none of them.
 """
 
 _LAZY = {
+    "make_mesh": ("ssrg_torch.parallel.mesh", "make_mesh"),
     "RowPartition": ("ssrg_torch.parallel.partition", "RowPartition"),
     "partition_rows": ("ssrg_torch.parallel.partition", "partition_rows"),
+    "ShardedAdj": ("ssrg_torch.parallel.dist_spmm", "ShardedAdj"),
+    "dist_propagate": ("ssrg_torch.parallel.dist_spmm", "dist_propagate"),
     "outofcore_propagate": ("ssrg_torch.parallel.outofcore", "outofcore_propagate"),
 }
-# the reference's distributed names, not ported yet
-_DISTRIBUTED = ("make_mesh", "ShardedAdj", "dist_propagate")
 
 __all__ = list(_LAZY)
 
@@ -26,8 +26,4 @@ def __getattr__(name: str):
 
         module, attr = _LAZY[name]
         return getattr(importlib.import_module(module), attr)
-    if name in _DISTRIBUTED:
-        raise NotImplementedError(
-            f"ssrg_torch.parallel.{name}: the distributed modules (mesh, dist_spmm, "
-            "dist_train, multihost) are not ported yet (ROADMAP.md section 1, item 4)")
     raise AttributeError(f"module 'ssrg_torch.parallel' has no attribute {name!r}")

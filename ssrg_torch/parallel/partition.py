@@ -16,7 +16,7 @@ global, or, with a halo plan, index each shard's gather table ``[own block
 - :func:`cluster_reorder_for_partition`: community renumbering, so that
   shard boundaries follow clusters and the halo stays small.
 
-The distributed SpMM that consumes them is ROADMAP.md section 1, item 4.
+:mod:`ssrg_torch.parallel.dist_spmm` places one shard on each rank.
 """
 
 from __future__ import annotations

@@ -16,6 +16,7 @@ import sys
 import numpy as np
 import pytest
 import torch
+import torch.distributed as dist
 
 from ssrg_torch import bench
 
@@ -46,13 +47,16 @@ def test_run_bench_on_the_cpu(capsys):
     # dense engine at this size: the gather engines' traffic model stays out
     assert "hbm_frac" not in payload and "achieved_gbps" not in payload
     assert "mxu_frac" not in payload
-    assert not [k for k in payload if k.startswith("sharded") or k.endswith("_error")]
+    assert not [k for k in payload if k.endswith("_error")]
     for key in ("value", "library_edges_per_s", "baseline_edges_per_s",
-                "clustered_edges_per_s", "banded_pallas_edges_per_s"):
+                "sharded_edges_per_s", "sharded_vs_bare", "clustered_edges_per_s",
+                "banded_pallas_edges_per_s"):
         assert math.isfinite(payload[key]) and payload[key] > 0, key
+    assert payload["sharded_vs_bare"] == payload["sharded_edges_per_s"] / payload["value"]
     assert payload["baseline"] == "scipy_csr" and payload["device"] == "cpu"
     assert payload["clustered_num_nodes"] == 1500
-    for key in ("headline_spread", "clustered_spread", "banded_pallas_spread"):
+    for key in ("headline_spread", "sharded_spread", "clustered_spread",
+                "banded_pallas_spread"):
         assert 0 <= payload[key] < 1
 
 
@@ -115,14 +119,25 @@ def test_reference_kernel_is_used_only_when_named(monkeypatch, tmp_path):
 
 
 def test_sharded_tier_is_not_ported():
-    with pytest.raises(NotImplementedError, match="Parallel / out-of-core"):
-        bench.sharded_tier_metrics(None, 16, 2)
+    """The sharded tier runs the distributed hybrid engine on a world of one
+    gloo rank it starts and ends, and counts the reference's keys."""
+    from ssrg_tpu.bench import sharded_tier_metrics as ref_sharded
+
+    adj, _ = bench.make_benchmark_graph(9000, 6.0, 8)
+    assert not dist.is_initialized()
+    got = bench.sharded_tier_metrics(adj, 8, 2, iters=1, device="cpu")
+    assert not dist.is_initialized()
+    want = ref_sharded(adj, 8, 2, iters=1)
+    assert set(got) == set(want) == {"sharded_edges_per_s", "sharded_spread"}
+    assert math.isfinite(got["sharded_edges_per_s"]) and got["sharded_edges_per_s"] > 0
+    assert 0 <= got["sharded_spread"] < 1
 
 
 @pytest.mark.parametrize("target", [
     "ssrg_torch.ops.sparse.device_adjacency",          # the headline
     "ssrg_torch.ops.sparse.build_tiled",               # the clustered tier
     "ssrg_torch.ops.pallas_banded.PallasBandedAdj",    # the banded tier
+    "ssrg_torch.parallel.dist_spmm.shard_adjacency_hybrid",  # the sharded tier
 ])
 def test_a_failing_tier_fails_the_run(target, monkeypatch, capsys):
     def broken(*args, **kwargs):
@@ -132,6 +147,8 @@ def test_a_failing_tier_fails_the_run(target, monkeypatch, capsys):
     with pytest.raises(ValueError, match="broken"):
         bench.run_bench(**SMALL, iters=2, device="cpu")
     assert capsys.readouterr().out == ""
+    if dist.is_initialized():   # the sharded tier's world of one, left by its failure
+        dist.destroy_process_group()
 
 
 def test_bench_module_prints_one_json_line():

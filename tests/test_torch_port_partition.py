@@ -156,14 +156,21 @@ def test_cluster_reorder_for_partition_equal(merge_target):
 
 
 def test_parallel_package_exposes_only_what_exists():
+    """Every lazy export resolves to its module's object (the reference's
+    names, the distributed ones included); others raise AttributeError."""
     assert parallel.partition_rows is partition.partition_rows
     assert parallel.RowPartition is partition.RowPartition
+    from ssrg_torch.parallel.dist_spmm import ShardedAdj, dist_propagate
+    from ssrg_torch.parallel.mesh import make_mesh
     from ssrg_torch.parallel.outofcore import outofcore_propagate
 
     assert parallel.outofcore_propagate is outofcore_propagate
-    for name in ("make_mesh", "ShardedAdj", "dist_propagate"):
-        with pytest.raises(NotImplementedError, match="section 1, item 4"):
-            getattr(parallel, name)
+    assert parallel.make_mesh is make_mesh
+    assert parallel.ShardedAdj is ShardedAdj
+    assert parallel.dist_propagate is dist_propagate
+    from ssrg_tpu import parallel as ref_parallel
+
+    assert set(ref_parallel.__all__) <= set(parallel.__all__)
     with pytest.raises(AttributeError):
         parallel.no_such_name
 
