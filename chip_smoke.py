@@ -114,6 +114,17 @@ Phases, each printing JSON lines:
               clustered: rest, banded: banded), the headline hops traced with
               ``device_trace``, and the banded kernel against its plain
               version on the banded tier's dense pack, timed.
+12. cli     — runs after ``dist`` (no process group live) and before
+              ``bench``: ``ssrg_torch.cli.main`` in this process on the
+              ``train`` graph written as a ``.pt`` dataset directory
+              (``sparsify_dataset`` at rates 0, 0): ``train`` (GAMLP 3 x 256,
+              minibatches of 10,000, 20 epochs, a checkpoint; best val >=
+              0.25), ``predict`` from that checkpoint (the test split's
+              48,603 labels equal to a ``Predictor`` built here), ``spmd`` at
+              its defaults (tiled, halo, cluster) on a world of one NCCL rank
+              that it ends, and ``bench`` at its defaults (nnz and every rate
+              checked); each command's launches counted (ELL 3 for train,
+              predict and spmd; the bench's three runs of each tier).
 
 ``--trace_dir`` keeps the three Chrome traces (default: a temporary directory).
 Then a ``{"kernels": [...]}`` line, the card's name and power limit, and as
@@ -3194,6 +3205,169 @@ def phase_dist(ranks: int = 1, graph: dict = None) -> dict:
     return out
 
 
+# --- the command line ----------------------------------------------------------
+
+CLI_EPOCHS = 20
+CLI_SPMD_STEPS = 20
+CLI_MIN_VAL = 0.25          # ten times chance over 40 classes
+# a predicted label may differ from the directly built Predictor's only where
+# that predictor's top two logits lie closer than this (float32 sums of the
+# hybrid tail, added by atomics, may round either way there)
+CLI_TIE_GAP = 1e-4
+CLI_MODEL = ["--model_name", "gamlp", "--hidden_dim", "256", "--num_layers", "3",
+             "--prop_steps", "3"]
+
+
+def cli_call(step: str, argv: list) -> tuple:
+    """``ssrg_torch.cli.main(argv)`` in this process, its standard output
+    captured, the launch counts set to 0 just before it and read just
+    after, timed on the host clock. Checks exit code 0. Returns (the
+    output, the launches, the seconds)."""
+    import contextlib
+    import io
+
+    import torch
+
+    from ssrg_torch import cli
+
+    buf = io.StringIO()
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(argv)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = read_launches()
+    out = buf.getvalue()
+    check(rc == 0, f"cli {step}: exit code {rc}; its output ends {out[-2000:]!r}")
+    return out, launches, seconds
+
+
+def cli_launches(step: str, got: dict, expected: dict) -> None:
+    want = {name: expected.get(name, 0) for name in KERNELS}
+    check(got == want, f"cli {step} launched {got}, expected {want}")
+
+
+def phase_cli() -> dict:
+    """``ssrg-torch`` on the card, through ``ssrg_torch.cli.main`` in this
+    process: ``planetoid_like(**TRAIN_GRAPH)`` written as a dataset
+    directory (``sparsify_dataset`` at rates 0, 0), then ``train`` (GAMLP at
+    full width, minibatches of 10,000, a checkpoint), ``predict`` from that
+    checkpoint, ``spmd`` at its defaults (tiled, halo, cluster) on a world of
+    one NCCL rank, and ``bench`` at its defaults. Checks: each exit code 0;
+    each command's launches (train, predict and spmd: the ELL kernel K = 3
+    times; bench: the ELL kernel for the headline and sharded tiers, the rest
+    kernel for the clustered tier and the banded kernel for the banded one,
+    three runs of ``iters * K`` hops each); train's best val >= 0.25 and its
+    checkpoint written; the predicted labels of the test split equal those
+    of a ``Predictor`` built here from the same checkpoint (but at near
+    ties, ``CLI_TIE_GAP``); spmd's best val finite and no process group left
+    after it; the bench's nnz and every rate finite and positive. Returns
+    each command's launches by kernel."""
+    import math
+    import re
+
+    import torch
+    import torch.distributed as dist
+
+    from ssrg_torch.configs.config import ModelConfig, TrainingConfig
+    from ssrg_torch.data.sparsity import load_homo_simplex_sparsity_dataset
+    from ssrg_torch.data.synthetic import planetoid_like
+    from ssrg_torch.models.zoo import load_model
+    from ssrg_torch.pipelines import sparsify_dataset
+    from ssrg_torch.serve import Predictor
+
+    t0 = time.perf_counter()
+    name = "arxiv_like_0.0_0.0"
+    launches = {}
+    with tempfile.TemporaryDirectory() as root:
+        ds = planetoid_like(**TRAIN_GRAPH)
+        sparsify_dataset(ds, 0.0, 0.0, os.path.join(root, name), seed=SEED)
+        test_size = len(ds.test_idx)
+        del ds
+        data = ["--data_name", name, "--data_root", root]
+        emit({"phase": "cli", "step": "data", "seconds": time.perf_counter() - t0,
+              "nodes": NUM_NODES, "test_nodes": test_size})
+
+        ckpt = os.path.join(root, "gamlp.ckpt")
+        argv = ["train", *data, *CLI_MODEL, "--train_batch_size", "10000",
+                "--num_epochs", str(CLI_EPOCHS), "--checkpoint_path", ckpt]
+        out, got, seconds = cli_call("train", argv)
+        m = re.search(r"Best val: ([0-9.]+), best test: ([0-9.]+)", out)
+        check(m is not None, f"cli train printed no best val: {out[-2000:]!r}")
+        best_val, best_test = float(m.group(1)), float(m.group(2))
+        check(best_val >= CLI_MIN_VAL, f"cli train best val {best_val} < {CLI_MIN_VAL}")
+        check(os.path.isfile(ckpt), f"cli train wrote no checkpoint at {ckpt}")
+        cli_launches("train", got, {"ell_spmm": 3})
+        launches["train"] = got
+        emit({"phase": "cli", "step": "train", "argv": argv, "seconds": seconds,
+              "launches": got, "best_val": best_val, "best_test": best_test})
+
+        labels_path = os.path.join(root, "labels.npy")
+        argv = ["predict", *data, *CLI_MODEL, "--checkpoint", ckpt, "--out", labels_path]
+        out, got, seconds = cli_call("predict", argv)
+        cli_launches("predict", got, {"ell_spmm": 3})
+        launches["predict"] = got
+        labels = np.load(labels_path)
+        check(labels.shape == (test_size,),
+              f"cli predict wrote labels of shape {labels.shape}, expected ({test_size},)")
+        check(f"wrote {test_size} predictions" in out, f"cli predict printed {out[-500:]!r}")
+        sp_ds = load_homo_simplex_sparsity_dataset(name, root)
+        cfg = ModelConfig(model_name="gamlp", hidden_dim=256, num_layers=3, prop_steps=3)
+        pred = Predictor(sp_ds, load_model(cfg, sp_ds.num_features, sp_ds.num_classes), cfg,
+                         TrainingConfig(), checkpoint_path=ckpt, device="cuda")
+        logits = pred.logits(np.asarray(sp_ds.test_idx))
+        direct = logits.argmax(dim=-1).cpu().numpy()
+        top2 = torch.topk(logits, 2, dim=-1).values
+        gap = (top2[:, 0] - top2[:, 1]).cpu().numpy()
+        differ = labels != direct
+        check(not differ[gap > CLI_TIE_GAP].any(),
+              f"cli predict's labels differ from Predictor's at {int(differ.sum())} nodes, "
+              f"{int(differ[gap > CLI_TIE_GAP].sum())} of them beyond a gap of {CLI_TIE_GAP}")
+        emit({"phase": "cli", "step": "predict", "argv": argv, "seconds": seconds,
+              "launches": got, "labels": int(labels.size),
+              "labels_differing": int(differ.sum()),
+              "near_ties": int((gap <= CLI_TIE_GAP).sum())})
+        del pred, logits, sp_ds
+        torch.cuda.empty_cache()
+
+        check(not dist.is_initialized(), "a process group is live before cli spmd")
+        argv = ["spmd", *data, "--steps", str(CLI_SPMD_STEPS)]
+        out, got, seconds = cli_call("spmd", argv)
+        check(not dist.is_initialized(), "cli spmd left its process group behind")
+        m = re.search(r"best val ([0-9.naif]+), best test ([0-9.naif]+)", out)
+        check(m is not None, f"cli spmd printed no best val: {out[-2000:]!r}")
+        spmd_val, spmd_test = float(m.group(1)), float(m.group(2))
+        check(math.isfinite(spmd_val) and math.isfinite(spmd_test),
+              f"cli spmd best val {spmd_val}, best test {spmd_test}")
+        check("spmd: mesh {'graph': 1}, engine tiled, comm halo" in out,
+              f"cli spmd printed {out[-2000:]!r}")
+        cli_launches("spmd", got, {"ell_spmm": 3})
+        launches["spmd"] = got
+        emit({"phase": "cli", "step": "spmd", "argv": argv, "seconds": seconds,
+              "launches": got, "best_val": spmd_val, "best_test": spmd_test,
+              "line": out.strip().splitlines()[-1]})
+    torch.cuda.empty_cache()
+
+    out, got, seconds = cli_call("bench", ["bench"])
+    result = json.loads(out.strip().splitlines()[-1])
+    check(result["nnz"] == BENCH_NNZ, f"cli bench: nnz {result['nnz']}, expected {BENCH_NNZ}")
+    rates = {k: v for k, v in result.items()
+             if k == "value" or k.startswith("vs_") or k.endswith(("_edges_per_s", "_vs_bare"))}
+    check(all(isinstance(v, (int, float)) and math.isfinite(v) and v > 0
+              for v in rates.values()), f"cli bench rates {rates}")
+    hops = result["iters"] * result["prop_steps"]
+    # a warm run and two timed runs of each tier; no trace here
+    cli_launches("bench", got, {"ell_spmm": 2 * 3 * hops, "rest_spmm": 3 * hops,
+                                "banded_spmm": 3 * hops})
+    launches["bench"] = got
+    emit({"phase": "cli", "step": "bench", "seconds": seconds, "launches": got,
+          "rates": rates})
+    emit({"phase": "cli", "seconds": time.perf_counter() - t0})
+    return launches
+
+
 # --- the bench entry point -----------------------------------------------------
 
 # the bench's functions that each drive one tier, and the kernel each launches
@@ -3342,6 +3516,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     dist_run = phase_dist()
     torch.cuda.empty_cache()
+    cli_run = phase_cli()
+    torch.cuda.empty_cache()
     bench_run = phase_bench(os.path.join(trace_root, "bench_headline"))
     bench_launches = bench_run["launches"]
     # each path's launches, counted from 0 just before it and read just after
@@ -3355,6 +3531,10 @@ def main() -> int:
                                "bench_banded": bench_launches["banded"]},
                "rest_spmm": {"tiled_bf16": launches["rest_spmm"],
                              "bench_clustered": bench_launches["clustered"]}}
+    for step, got in cli_run.items():
+        for name, count in got.items():
+            if count:
+                by_path[name][f"cli_{step}"] = count
 
     emit({"kernels": [{
         "name": name, "route": "cuda", "source": f"ssrg_torch/csrc/{name}.cu",

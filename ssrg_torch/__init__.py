@@ -22,8 +22,10 @@ single-card out-of-core propagation and training
 (:mod:`ssrg_torch.parallel.outofcore`, :mod:`ssrg_torch.train.outofcore_task`)
 and the distributed tier on ``torch.distributed``
 (:mod:`ssrg_torch.parallel.dist_spmm`, :mod:`ssrg_torch.parallel.dist_train`,
-:mod:`ssrg_torch.parallel.multihost`).
-Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
+:mod:`ssrg_torch.parallel.multihost`), and the command line
+(:mod:`ssrg_torch.cli`, ``ssrg-torch``): every module of ``ssrg_tpu``.
+Entry points run on ``cuda`` unless the caller passes ``device="cpu"``
+(``--device cpu`` on the command line).
 """
 
 __version__ = "0.1.0"

@@ -105,6 +105,23 @@ def seeded_features(n: int, f: int, device: DeviceLike, seed: int = 0) -> torch.
     return torch.randn((n, f), generator=gen, device=dev, dtype=torch.float32)
 
 
+@torch.no_grad()
+def sgc_precompute(adj_dev, x, prop_steps: int,
+                   device: DeviceLike = "cuda") -> tuple[torch.Tensor, list]:
+    """K hops of ``adj_dev`` (an adjacency already on ``device``) from
+    ``x``, each timed on the host clock after a synchronize of the card:
+    the per-hop timing hook. Returns (hop K, [seconds of each hop])."""
+    dev = resolve_device(device)
+    h = torch.as_tensor(x, dtype=torch.float32, device=dev)
+    times = []
+    for _ in range(prop_steps):
+        t0 = time.perf_counter()
+        h = adj_dev.spmm(h)
+        synchronize(dev)
+        times.append(time.perf_counter() - t0)
+    return h, times
+
+
 def baseline_edges_per_s(
     adj: sp.csr_matrix, x: np.ndarray, prop_steps: int, iters: int = 2
 ) -> tuple[float, str]:

@@ -283,6 +283,18 @@ class ProjectedConcatMessageOp(nn.Module):
         return torch.cat(outs, dim=-1)
 
 
+def combine_multi_last(hop_stacks, start=None, end=None):
+    """``combine_last`` of each stack of a tuple of hop stacks (the
+    two_dir and two_order models' per-adjacency readout)."""
+    return tuple(combine_last(h, start, end) for h in hop_stacks)
+
+
+def combine_complex(re_hops, im_hops, fn=combine_last, **kwargs):
+    """Apply the combiner ``fn`` to the real and the imaginary hop stacks
+    of a magnetic propagation; returns the pair."""
+    return fn(re_hops, **kwargs), fn(im_hops, **kwargs)
+
+
 def make_message_op(aggr_type: str, **kwargs) -> nn.Module:
     """Build a message op by the reference's ``aggr_type`` string."""
     simple = {

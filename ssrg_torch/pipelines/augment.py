@@ -20,6 +20,7 @@ completion (counterpart of ``ssrg_tpu/pipelines/augment.py``).
 
 from __future__ import annotations
 
+import os
 from typing import Tuple
 
 import numpy as np
@@ -163,3 +164,23 @@ def augment_dataset(
         np.asarray(dataset.feature_mask) if dataset.feature_mask is not None else None,
         np.asarray(dataset.edge_mask) if dataset.edge_mask is not None else None,
     )
+
+
+def run_augment(args) -> None:
+    """The ``ssrg-torch augment`` hook: repair ``--data_name`` under
+    ``--data_root`` on ``--device`` into ``{data_save_path}/{data_name}``."""
+    from ssrg_torch.data.sparsity import load_homo_simplex_sparsity_dataset
+
+    cfg = DataAugmentConfig(
+        data_name=args.data_name, data_root=args.data_root,
+        hidden_dim=args.hidden_dim, dropout=args.dropout,
+        weight_decay=args.weight_decay, lr=args.lr, epochs=args.epochs,
+        degree_level=args.degree_level, data_save_path=args.data_save_path,
+    )
+    dataset = load_homo_simplex_sparsity_dataset(
+        cfg.data_name, cfg.data_root, args.data_split,
+        surrogate_features=getattr(args, "surrogate_features", False),
+    )
+    out = os.path.join(cfg.data_save_path, cfg.data_name)
+    raw = augment_dataset(dataset, cfg, out, args.seed, verbose=True, device=args.device)
+    print(f"augmented dataset written to {raw}")

@@ -109,3 +109,24 @@ def sparsify_dataset(
         np.asarray(dataset.train_idx), np.asarray(dataset.val_idx),
         np.asarray(dataset.test_idx), feature_mask, edge_mask,
     )
+
+
+def run_sparsify(args) -> None:
+    """The ``ssrg-torch sparsify`` hook: the SBM of ``planetoid_like`` for
+    ``--synthetic`` or a dataset name starting with ``sbm``, else the named
+    dataset's augmented ``.pt`` files; writes ``{out_root}/{name}_{fr}_{er}``."""
+    if getattr(args, "synthetic", False) or args.dataset.startswith("sbm"):
+        from ssrg_torch.data.synthetic import planetoid_like
+
+        dataset = planetoid_like(seed=args.seed)
+        name = "sbm"
+    else:
+        from ssrg_torch.data.sparsity import load_homo_simplex_sparsity_dataset
+
+        dataset = load_homo_simplex_sparsity_dataset(
+            args.dataset, args.dataroot, "official", is_augumented=True)
+        name = args.dataset
+    fr, er = args.sparse_rate
+    out = osp.join(args.out_root, f"{name}_{fr}_{er}")
+    raw = sparsify_dataset(dataset, fr, er, out, args.seed)
+    print(f"sparsified dataset written to {raw}")

@@ -12,7 +12,6 @@ minibatches.
 
 from __future__ import annotations
 
-import random
 from dataclasses import dataclass
 from typing import Optional
 
@@ -22,15 +21,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ssrg_torch.models.heads import bind_generator
-from ssrg_torch.utils import DeviceLike
-
-
-def seed_everything(seed: int, device: DeviceLike = "cpu") -> torch.Generator:
-    """Seed python and numpy and return a ``torch.Generator`` on ``device``
-    seeded with ``seed``."""
-    random.seed(seed)
-    np.random.seed(seed)
-    return torch.Generator(device=device).manual_seed(seed)
+from ssrg_torch.utils import seed_everything  # noqa: F401  (its home is ssrg_torch.utils)
 
 
 def accuracy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:

@@ -1,11 +1,12 @@
 """Small helpers shared by the port: device resolution, the parameter
 initializers of the reference's flax modules, drawn from an explicit
-``torch.Generator``, and the reference's run utilities (``get_params``,
-``generate_numbers``, ``compute_distance``)."""
+``torch.Generator``, and the reference's run utilities (``seed_everything``,
+``get_params``, ``generate_numbers``, ``compute_distance``)."""
 
 from __future__ import annotations
 
 import math
+import random
 from typing import Iterable, List, Optional, Sequence, Union
 
 import numpy as np
@@ -73,6 +74,14 @@ def resolve_device(device: DeviceLike = "cuda") -> torch.device:
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {dev}; use 'cuda' or 'cpu'")
     return dev
+
+
+def seed_everything(seed: int, device: DeviceLike = "cpu") -> torch.Generator:
+    """Seed python and numpy and return a ``torch.Generator`` on ``device``
+    seeded with ``seed`` (the reference returns a JAX key in its place)."""
+    random.seed(seed)
+    np.random.seed(seed)
+    return torch.Generator(device=device).manual_seed(seed)
 
 
 def synchronize(device: torch.device) -> None:

@@ -1,5 +1,6 @@
 """The PyTorch port stands alone: no file of ``ssrg_torch``, no
-``chip_smoke.py`` and no ``tools/ell_variants.py`` imports jax, flax, optax,
+``examples/torch_*.py``, no ``chip_smoke.py`` and no
+``tools/ell_variants.py`` imports jax, flax, optax,
 msgpack or ``ssrg_tpu``; none of them, nor a source under
 ``ssrg_torch/csrc``, names a path under the JAX package's ``native/``
 directory; importing the port pulls none of them in; and both scripts fail
@@ -20,7 +21,9 @@ import torch
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "msgpack", "ssrg_tpu")
 PACKAGE_FILES = sorted((ROOT / "ssrg_torch").rglob("*.py"))
-PORT_FILES = PACKAGE_FILES + [ROOT / "chip_smoke.py", ROOT / "tools" / "ell_variants.py"]
+EXAMPLE_FILES = sorted((ROOT / "examples").glob("torch_*.py"))
+PORT_FILES = PACKAGE_FILES + EXAMPLE_FILES + [ROOT / "chip_smoke.py",
+                                              ROOT / "tools" / "ell_variants.py"]
 SOURCES = sorted((ROOT / "ssrg_torch" / "csrc").iterdir())
 
 
