@@ -27,14 +27,16 @@ Phases, each printing JSON lines:
               banded graph with shuffled ids (RCM finds the band) and
               ``community_graph`` (label propagation finds the clusters).
               Each layer of the reorder path timed alone; the banded kernel
-              on the f32 and bf16 packs and the rest kernel on the
-              community rest (f32 and bf16) against their plain versions,
-              timed beside their bounds, the rate of device memory they
-              reach and a library call, then on ragged packs; GAMLP through
-              ``Predictor`` with ``reorder_banded`` (f32, bf16) and
-              ``reorder_tiled`` + ``spmm_bf16``, each with its kernel's
-              launch count, hop K against float64 scipy and the requests;
-              each ``prepare`` beside the 5 s limit.
+              on the f32 pack (its stream path) and the bf16 pack (its
+              tensor-core path) and the rest kernel on the community rest
+              (f32 and bf16) against their plain versions, timed beside
+              their bounds, the rate of device memory they reach and a
+              library call, then on ragged packs (the tensor-core path's
+              tile edges among them); GAMLP through ``Predictor`` with
+              ``reorder_banded`` (f32, bf16) and ``reorder_tiled`` +
+              ``spmm_bf16``, each with its kernel's launch count (the
+              banded kernel's by path), hop K against float64 scipy and the
+              requests; each ``prepare`` beside the 5 s limit.
 5. train    — training through ``NodeClassification`` on a 169,343-node,
               F = 128, 40-class SBM with ogbn-arxiv's split sizes: GAMLP at
               full width (minibatches of 10,000, batched evaluation, a
@@ -111,9 +113,10 @@ Phases, each printing JSON lines:
 11. bench   — ``ssrg_torch.bench.run_bench()`` at its defaults (169,343
               nodes, degree 13.7, F = 128, K = 3, 10 iterations): its JSON
               line, each tier's kernel launches (headline and sharded: ELL,
-              clustered: rest, banded: banded), the headline hops traced with
-              ``device_trace``, and the banded kernel against its plain
-              version on the banded tier's dense pack, timed.
+              clustered: rest, banded: banded, all on its tensor-core path),
+              the headline hops traced with ``device_trace``, and the banded
+              kernel against its plain version on the banded tier's dense
+              bf16 pack, timed.
 12. cli     — runs after ``dist`` (no process group live) and before
               ``bench``: ``ssrg_torch.cli.main`` in this process on the
               ``train`` graph written as a ``.pt`` dataset directory
@@ -211,10 +214,24 @@ def kernel_wrappers() -> dict:
 def reset_launches() -> None:
     for fn in kernel_wrappers().values():
         fn.launches = 0
+    banded = kernel_wrappers()["banded_spmm"]
+    banded.path_launches = dict.fromkeys(banded.path_launches, 0)
 
 
 def read_launches() -> dict:
     return {name: fn.launches for name, fn in kernel_wrappers().items()}
+
+
+def banded_paths() -> dict:
+    """The banded kernel's launches by path (``stream``, ``tensor_core``)."""
+    return dict(kernel_wrappers()["banded_spmm"].path_launches)
+
+
+def check_banded_paths(what: str, got: dict, tensor_core: int, stream: int = 0) -> None:
+    """Every bf16 pack goes through the tensor-core path, every f32 pack
+    through the stream path."""
+    want = {"stream": stream, "tensor_core": tensor_core}
+    check(got == want, f"{what}: the banded kernel's launches by path {got}, expected {want}")
 
 
 def seeded_gamlp(num_features: int):
@@ -669,38 +686,64 @@ def locality_layers(run: str, ds, engine: str, bf16: bool, prop_steps: int):
     return rec, pack_dev, x_dev
 
 
-def banded_case(name: str, blocks, los, x, round_x: bool, timed: bool) -> dict:
-    """Hold ``banded_spmm`` against ``banded_spmm_plain`` on card tensors.
+# |kernel - plain| <= factor * c * 2^-24 * sum|a * x| for a row of c nonzero
+# entries, by path (banded_case has the derivations)
+BANDED_TOLERANCE = {"stream": 2.0, "tensor_core": 7.0}
 
-    Tolerance: both take the same products for each output (in bf16 both
-    round the same operands, and a bf16 x bf16 product is exact in f32) and
-    sum them in another order; a zero entry adds an exact zero, so for a row
-    of c nonzero entries each is within ``c * u * sum|a * x|`` of the exact
-    sum (u = 2^-24) and they differ by at most twice that, elementwise."""
+
+def banded_case(name: str, blocks, los, x, round_x: bool, timed: bool) -> dict:
+    """Hold ``banded_spmm`` against ``banded_spmm_plain`` on card tensors,
+    and check that the product took its path: bf16 blocks the tensor cores,
+    f32 blocks the stream kernel.
+
+    Tolerance, for a row of c nonzero entries, S = sum|a * x| (u = 2^-24;
+    both versions take the same products, and a bf16 x bf16 product is exact
+    in f32). Stream path: it sums the nonzero products in another order than
+    the plain version, each within ``c * u * S`` of the exact sum, so they
+    differ by at most ``2 * c * u * S``. Tensor-core path (the source note of
+    ``csrc/banded_spmm.cu``): on Fasi et al.'s model of an MMA's sum (PeerJ
+    CS 2021, measured on Volta to Ampere, assumed here for Hopper's wgmma)
+    an MMA aligns its terms to the largest and truncates, so a group of g
+    nonzero products loses less than ``(g + 2) * 2 u * S``, a zero group
+    nothing, the row less than ``3 c * 2 u * S``; with the plain version's
+    ``c * u * S``: ``7 * c * u * S``. Elementwise. The record's
+    ``max_err_over_tolerance``, the card's observed error over this bound, is
+    what backs the assumption."""
     import torch
 
-    from ssrg_torch.ops.banded_spmm import banded_spmm, banded_spmm_plain
+    from ssrg_torch.ops.banded_spmm import banded_spmm, banded_spmm_plain, path
 
-    out_k = banded_spmm(blocks, los, x, round_x)
-    out_p = banded_spmm_plain(blocks, los, x, round_x)
-    torch.cuda.synchronize()
     nb, rb, w = blocks.shape
     f = x.shape[1]
     bf16 = blocks.dtype == torch.bfloat16
+    chosen = path(blocks)
+    check(chosen == ("tensor_core" if bf16 else "stream"),
+          f"{name}: a {blocks.dtype} pack takes the {chosen} path")
+    before = banded_paths()
+    out_k = banded_spmm(blocks, los, x, round_x)
+    out_p = banded_spmm_plain(blocks, los, x, round_x)
+    torch.cuda.synchronize()
+    after = banded_paths()
+    check(after[chosen] == before[chosen] + 1 and sum(after.values()) == sum(before.values()) + 1,
+          f"{name}: launches by path went from {before} to {after}, not one on {chosen}")
     counts = (blocks != 0).sum(dim=2).reshape(-1)          # nonzeros of each output row
     magnitude = banded_spmm_plain(blocks.abs(), los, x.abs(), round_x)
-    max_abs_err = hold(name, out_k, out_p,
-                       2.0 * counts[:, None] * UNIT_ROUNDOFF * magnitude + 1e-30)
+    tol = BANDED_TOLERANCE[chosen] * counts[:, None] * UNIT_ROUNDOFF * magnitude + 1e-30
     del magnitude
+    max_abs_err = hold(name, out_k, out_p, tol)
+    err_over_tol = float(((out_k - out_p).abs() / tol).max()) if out_k.numel() else 0.0
+    del tol
     nonzeros = int(counts.sum())
-    rec = {"phase": "kernels", "case": name, "kernel": "banded_spmm", "row_blocks": nb,
-           "row_block": rb, "window": w, "n": int(x.shape[0]), "f": f,
+    rec = {"phase": "kernels", "case": name, "kernel": "banded_spmm", "path": chosen,
+           "row_blocks": nb, "row_block": rb, "window": w, "n": int(x.shape[0]), "f": f,
            "blocks_dtype": str(blocks.dtype), "round_x": bool(round_x or bf16),
            "window_past_n": int(los.max()) + w > x.shape[0],
            "empty_row_blocks": int(counts.reshape(nb, rb).sum(dim=1).eq(0).sum()),
            "nonzeros": nonzeros, "longest_row": int(counts.max()),
-           "max_abs_err": max_abs_err,
-           "tolerance": "2*c*2^-24*sum|a*x| elementwise, c nonzeros of the row"}
+           "max_abs_err": max_abs_err, "max_err_over_tolerance": err_over_tol,
+           "tolerance": f"{BANDED_TOLERANCE[chosen]:g}*c*2^-24*sum|a*x| elementwise, "
+                        "c nonzeros of the row",
+           "x_aligned": x.data_ptr() % 16 == 0, "blocks_aligned": blocks.data_ptr() % 16 == 0}
     if not timed:
         return rec
     # the bound: the blocks, los, x and out each moved once; one multiply-add
@@ -730,6 +773,8 @@ def banded_case(name: str, blocks, los, x, round_x: bool, timed: bool) -> dict:
         **bound(nbytes, flops, BF16_FLOPS_PER_S if bf16 else F32_FLOPS_PER_S),
         "dense_flops": 2.0 * nb * rb * w * f,
     })
+    # the dense product's rate (the tensor-core path multiplies every entry)
+    rec["dense_tflops_per_s"] = rec["dense_flops"] / rec["ms"] / 1e9
     return against_bound(name, rec)
 
 
@@ -818,12 +863,14 @@ def banded_ragged_cases() -> list:
     cases = [("real_n5000_f50", pack.blocks, pack.los, torch.randn(n, 50, generator=gen),
               False)]
 
-    def synthetic(nb, rb, w, n, f, bf16, empty, dense_rows=False):
+    def synthetic(nb, rb, w, n, f, bf16, empty, dense_rows=False, dense_block=False):
         blocks = torch.randn(nb, rb, w, generator=gen)
         blocks[torch.rand(nb, rb, w, generator=gen) < 0.7] = 0.0
         blocks[list(empty)] = 0.0                          # empty row blocks
         if dense_rows:  # every entry nonzero
             blocks[0, :3] = 0.1 + 0.9 * torch.rand(3, w, generator=gen)
+        if dense_block:  # every entry of block 0 nonzero
+            blocks[0] = 0.1 + 0.9 * torch.rand(rb, w, generator=gen)
         los = torch.randint(0, max(n - w // 2, 1), (nb,), generator=gen) // 16 * 16
         los[-1] = (n - 8) // 16 * 16                       # runs past N
         return (blocks.bfloat16() if bf16 else blocks, los.int(),
@@ -838,8 +885,30 @@ def banded_ragged_cases() -> list:
         ("odd_w37_f32", *synthetic(4, 24, 37, 120, 16, False, (1,)), False),
         ("odd_w45_bf16", *synthetic(3, 40, 45, 100, 20, True, ()), True),
         ("bf16_f128_past_n", *synthetic(3, 512, 640, 1500, 128, True, ()), True),
+        # the tensor-core path's tile edges (128 rows; 128 features and 128
+        # window rows a stage for F <= 128, 256 and 64 above): rb not a multiple
+        # of the row tile, W not a multiple of the stage or of 8, F past a
+        # feature tile or below 16, a dense block
+        ("tc_rb100_w63_f100", *synthetic(3, 100, 63, 300, 100, True, (1,)), False),
+        ("tc_rb200_w65_f136", *synthetic(3, 200, 65, 500, 136, True, ()), True),
+        ("tc_w1040_f8", *synthetic(3, 100, 1040, 1300, 8, True, ()), False),
+        ("tc_rb200_f256", *synthetic(3, 200, 256, 700, 256, True, ()), False),
+        ("tc_f1024", *synthetic(2, 64, 128, 400, 1024, True, ()), False),
+        ("tc_rb100_w130_f300", *synthetic(3, 100, 130, 500, 300, True, ()), False),
+        ("tc_f4", *synthetic(3, 128, 96, 300, 4, True, (1,)), False),
+        ("tc_dense_block", *synthetic(2, 130, 192, 500, 128, True, (), dense_block=True), False),
     ]
-    return [(name, b.cuda(), lo.cuda(), x.cuda(), rx) for name, b, lo, x, rx in cases]
+    out = [(name, b.cuda(), lo.cuda(), x.cuda(), rx) for name, b, lo, x, rx in cases]
+
+    def misaligned(t):  # a contiguous copy one element past a 16-byte boundary
+        buf = torch.empty(t.numel() + 1, dtype=t.dtype, device="cuda")
+        view = buf[1:].view(t.shape)
+        view.copy_(t)
+        return view
+
+    blocks, los, x = synthetic(3, 64, 128, 300, 36, True, (1,))
+    out.append(("tc_misaligned_pack_and_x", misaligned(blocks), los.cuda(), misaligned(x), False))
+    return out
 
 
 def rest_ragged_cases() -> list:
@@ -928,9 +997,13 @@ def locality_slice(run: str, ds, engine: str, bf16: bool, kernel: str) -> int:
     torch.cuda.synchronize()
     prepare_s = time.perf_counter() - t0
     launches = read_launches()
+    paths = banded_paths()
     logger.removeHandler(warned)
     expected = {name: (k if name == kernel else 0) for name in KERNELS}
     check(launches == expected, f"{run}: prepare launched {launches}, expected {expected}")
+    banded = k if kernel == "banded_spmm" else 0
+    check_banded_paths(run, paths, tensor_core=banded if bf16 else 0,
+                       stream=0 if bf16 else banded)
     check(not warned.messages, f"{run}: prepare warned {warned.messages}")
     requests = serve_requests(pred, run)
     check(read_launches() == launches, f"{run}: requests launched kernels")
@@ -958,7 +1031,8 @@ def locality_slice(run: str, ds, engine: str, bf16: bool, kernel: str) -> int:
            "engine": engine, "spmm_bf16": bf16, "prepare_s": prepare_s,
            "prepare_limit_s": PREPARE_LIMIT_S,
            "prepare_within_limit": prepare_s <= PREPARE_LIMIT_S,
-           "prepare_launches": launches, "hop_k_max_abs_err_vs_f64": float(err.max()),
+           "prepare_launches": launches, "prepare_banded_paths": paths,
+           "hop_k_max_abs_err_vs_f64": float(err.max()),
            "hop_k_max_rel_err_vs_f64": float((err / (ref_abs + 1e-30)).max()),
            "hop_tolerance": hop_tol, "requests": request_times(requests),
            "peak_mem_bytes": peak}
@@ -985,7 +1059,8 @@ def locality_slice(run: str, ds, engine: str, bf16: bool, kernel: str) -> int:
 def phase_locality(prop_steps: int):
     """The locality tier: layers, kernel cases at the path's shapes and on
     ragged packs, and the three ``Predictor`` runs. Returns the timed record
-    of each new kernel and its launches on its path."""
+    of each new kernel and its launches on its path, then the banded
+    kernel's timed record and launches of each path by path name."""
     import torch
 
     t0 = time.perf_counter()
@@ -1024,7 +1099,9 @@ def phase_locality(prop_steps: int):
     for run, graph, engine, bf16, kernel in LOCALITY_RUNS:
         launches[run] = locality_slice(run, graphs[graph], engine, bf16, kernel)
     return ({"banded_spmm": recs["banded_f32"], "rest_spmm": recs["rest_bf16"]},
-            {"banded_spmm": launches["banded_f32"], "rest_spmm": launches["tiled_bf16"]})
+            {"banded_spmm": launches["banded_f32"], "rest_spmm": launches["tiled_bf16"]},
+            {"stream": (recs["banded_f32"], launches["banded_f32"]),
+             "tensor_core": (recs["banded_bf16"], launches["banded_bf16"])})
 
 
 # --- the training slice -------------------------------------------------------
@@ -3361,6 +3438,7 @@ def phase_cli() -> dict:
     # a warm run and two timed runs of each tier; no trace here
     cli_launches("bench", got, {"ell_spmm": 2 * 3 * hops, "rest_spmm": 3 * hops,
                                 "banded_spmm": 3 * hops})
+    check_banded_paths("cli bench", banded_paths(), tensor_core=3 * hops)
     launches["bench"] = got
     emit({"phase": "cli", "step": "bench", "seconds": seconds, "launches": got,
           "rates": rates})
@@ -3396,7 +3474,7 @@ def phase_bench(trace_dir: str) -> dict:
 
     from ssrg_torch import bench
 
-    counted = {}
+    counted, counted_paths = {}, {}
     originals = {name: getattr(bench, name) for name, _, _ in BENCH_TIERS}
 
     def counting(fn, tier):
@@ -3406,6 +3484,7 @@ def phase_bench(trace_dir: str) -> dict:
             out = fn(*args, **kwargs)
             torch.cuda.synchronize()
             counted[tier] = read_launches()
+            counted_paths[tier] = banded_paths()
             return out
         return run
 
@@ -3428,6 +3507,9 @@ def phase_bench(trace_dir: str) -> dict:
         expected = {name: (runs * hops if name == kernel else 0) for name in KERNELS}
         check(counted.get(tier) == expected,
               f"bench {tier} tier launched {counted.get(tier)}, expected {expected}")
+        # the banded tier's pack is bf16: the tensor-core path
+        check_banded_paths(f"bench {tier} tier", counted_paths[tier],
+                           tensor_core=expected["banded_spmm"])
         launches[tier] = counted[tier][kernel]
     emit({"phase": "bench", "seconds": seconds, "launches_by_tier": counted,
           "trace": check_trace(result["trace"], "bench headline")})
@@ -3500,7 +3582,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     timed = {"ell_spmm": recs["headline"]}
-    locality_recs, locality_launches = phase_locality(prop_steps=3)
+    locality_recs, locality_launches, banded_by_path = phase_locality(prop_steps=3)
     timed.update(locality_recs)
     launches.update(locality_launches)
     torch.cuda.empty_cache()
@@ -3528,6 +3610,7 @@ def main() -> int:
                             "bench_headline": bench_launches["headline"],
                             "bench_sharded": bench_launches["sharded"]},
                "banded_spmm": {"banded_f32": launches["banded_spmm"],
+                               "banded_bf16": banded_by_path["tensor_core"][1],
                                "bench_banded": bench_launches["banded"]},
                "rest_spmm": {"tiled_bf16": launches["rest_spmm"],
                              "bench_clustered": bench_launches["clustered"]}}
@@ -3566,8 +3649,16 @@ def main() -> int:
                                for case, rec in {**baseline["cases"], **ooc["cases"]}.items()}}
            if name == "ell_spmm" else {}),
         **({"bench_dense_case": {k: bench_run["dense"][k] for k in
-                                 ("ms", "plain_ms", "bound_ms", "bound_by", "bound_share",
-                                  "library_ms", "max_abs_err")}}
+                                 ("path", "ms", "plain_ms", "bound_ms", "bound_by",
+                                  "bound_share", "library_ms", "max_abs_err",
+                                  "max_err_over_tolerance", "tolerance")},
+            # each path on its pack of the reorder_banded slice: f32 (stream)
+            # and bf16 (tensor cores); the line's own numbers are the f32 pack's
+            "paths": {p: {"launches": n, **{k: rec[k] for k in
+                                            ("ms", "plain_ms", "bound_ms", "bound_by",
+                                             "bound_share", "library_ms", "max_abs_err",
+                                             "max_err_over_tolerance", "tolerance")}}
+                      for p, (rec, n) in banded_by_path.items()}}
            if name == "banded_spmm" else {}),
     } for name in KERNELS]})
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",

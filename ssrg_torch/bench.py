@@ -306,9 +306,9 @@ def banded_tier_inputs(num_features: int, device: DeviceLike = "cuda") -> tuple:
 def banded_tier_metrics(num_features: int, prop_steps: int, iters: int,
                         device: DeviceLike = "cuda") -> dict:
     """The banded kernel on :func:`banded_tier_inputs` with a bf16 window,
-    edges/s counted at the headline graph's 2,489,237 edges. Every entry is
-    nonzero, so the zero-skipping kernel does every product. On the CPU:
-    10,000 model edges, 2 hops."""
+    edges/s counted at the headline graph's 2,489,237 edges. The blocks are
+    bf16, so the kernel's tensor-core path takes them, a dense product of
+    every entry. On the CPU: 10,000 model edges, 2 hops."""
     from ssrg_torch.ops.pallas_banded import PallasBandedAdj
 
     dev = resolve_device(device)

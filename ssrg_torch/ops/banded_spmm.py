@@ -10,7 +10,10 @@ the port of ``ssrg_tpu/ops/pallas_banded.py::_banded_kernel`` and carries
 on the card.
 
 For CUDA tensors the wrapper launches ``csrc/banded_spmm.cu``, which
-:mod:`ssrg_torch.ops._nvcc` builds at first use. For CPU tensors it runs
+:mod:`ssrg_torch.ops._nvcc` builds at first use, on the path :func:`path`
+picks by the blocks' type: bf16 blocks go to the tensor cores (a dense
+bf16 x bf16 -> f32 product, as the reference's MXU dot), f32 blocks to the
+stream kernel that skips zero entries. For CPU tensors it runs
 :func:`banded_spmm_plain`, which ``BandedAdj.spmm`` (the counterpart of the
 reference's XLA banded engine) also runs on any device.
 """
@@ -24,6 +27,8 @@ import torch
 from ssrg_torch.ops import _nvcc
 
 NAME = "banded_spmm"
+# the C entry's path argument is the index in this tuple
+PATHS = ("stream", "tensor_core")
 
 # bytes of f32 temporaries (the block group, its windows and its products)
 # the plain version holds at once
@@ -35,7 +40,8 @@ def _declare(lib: ctypes.CDLL) -> None:
     fn.argtypes = [
         ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+        ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+        ctypes.c_void_p,
     ]
     fn.restype = ctypes.c_int
 
@@ -57,6 +63,16 @@ def _check(blocks: torch.Tensor, los: torch.Tensor, x: torch.Tensor) -> None:
     _nvcc.check_operands("banded_spmm", blocks=blocks, los=los, x=x)
     if max(blocks.shape) >= 2**31 or x.shape[1] >= 2**31:
         raise TypeError("banded_spmm: nb, rb, W and F must fit in int32")
+
+
+def path(blocks: torch.Tensor) -> str:
+    """The kernel path a product of ``blocks`` takes on the card:
+    ``"tensor_core"`` for bf16 blocks, ``"stream"`` for f32 blocks, with
+    either window (``round_x``). A tensor core multiplies bf16 x bf16 exactly, as the
+    reference's MXU dot does; f32 blocks (with an f32 or a bf16 window) it
+    cannot, and their packs are mostly zeros, which the stream kernel skips.
+    The rule is by type, not by density; nothing else picks the path."""
+    return "tensor_core" if blocks.dtype == torch.bfloat16 else "stream"
 
 
 def _round_window(x: torch.Tensor, round_x: bool) -> torch.Tensor:
@@ -100,8 +116,10 @@ def banded_spmm(blocks: torch.Tensor, los: torch.Tensor, x: torch.Tensor,
     contiguous on one device; returns f32 ``[nb * rb, F]``. ``xt`` is ``x``
     rounded to bf16 when ``round_x`` is set or the blocks are bf16. The
     window starts must be >= 0, as the pack functions guarantee; the kernel does
-    not check them. CUDA tensors go to the kernel (counted in
-    ``banded_spmm.launches``), CPU tensors to :func:`banded_spmm_plain`.
+    not check them. CUDA tensors go to the kernel on :func:`path`'s path
+    (counted in ``banded_spmm.launches``, one a product whatever the path
+    launches inside it, and in ``banded_spmm.path_launches`` by path), CPU
+    tensors to :func:`banded_spmm_plain`.
     Forward only, as the reference's kernel: asked for a gradient, it
     raises."""
     _check(blocks, los, x)
@@ -116,15 +134,22 @@ def banded_spmm(blocks: torch.Tensor, los: torch.Tensor, x: torch.Tensor,
     if w == 0:
         return out.zero_()
     bf16 = blocks.dtype == torch.bfloat16
+    chosen = path(blocks)
+    # the tensor-core path's scratch: x rounded to bf16, rows padded to 8 features
+    window = (torch.empty((max(x.shape[0], 1), (f + 7) // 8 * 8), dtype=torch.bfloat16,
+                          device=x.device) if chosen == "tensor_core" else None)
     lib = _nvcc.library(NAME, _declare)
     with torch.cuda.device(x.device):
         err = lib.banded_spmm(
             blocks.data_ptr(), int(bf16), los.data_ptr(), x.data_ptr(), out.data_ptr(),
-            nb, rb, w, x.shape[0], f, int(round_x or bf16), _nvcc.stream_of(x),
+            nb, rb, w, x.shape[0], f, int(round_x or bf16), PATHS.index(chosen),
+            None if window is None else window.data_ptr(), _nvcc.stream_of(x),
         )
     _nvcc.check_launch(NAME, err)
     banded_spmm.launches += 1
+    banded_spmm.path_launches[chosen] += 1
     return out
 
 
 banded_spmm.launches = 0
+banded_spmm.path_launches = dict.fromkeys(PATHS, 0)

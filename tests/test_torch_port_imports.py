@@ -1,10 +1,10 @@
 """The PyTorch port stands alone: no file of ``ssrg_torch``, no
-``examples/torch_*.py``, no ``chip_smoke.py`` and no
-``tools/ell_variants.py`` imports jax, flax, optax,
-msgpack or ``ssrg_tpu``; none of them, nor a source under
+``examples/torch_*.py``, no ``chip_smoke.py`` and neither of
+``tools/ell_variants.py`` and ``tools/banded_variants.py`` imports jax, flax,
+optax, msgpack or ``ssrg_tpu``; none of them, nor a source under
 ``ssrg_torch/csrc``, names a path under the JAX package's ``native/``
-directory; importing the port pulls none of them in; and both scripts fail
-without a CUDA card, ``chip_smoke.py`` also without the rest of the
+directory; importing the port pulls none of them in; and the three scripts
+fail without a CUDA card, ``chip_smoke.py`` also without the rest of the
 repository."""
 
 import ast
@@ -23,7 +23,8 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "msgpack", "ssrg_tpu")
 PACKAGE_FILES = sorted((ROOT / "ssrg_torch").rglob("*.py"))
 EXAMPLE_FILES = sorted((ROOT / "examples").glob("torch_*.py"))
 PORT_FILES = PACKAGE_FILES + EXAMPLE_FILES + [ROOT / "chip_smoke.py",
-                                              ROOT / "tools" / "ell_variants.py"]
+                                              ROOT / "tools" / "ell_variants.py",
+                                              ROOT / "tools" / "banded_variants.py"]
 SOURCES = sorted((ROOT / "ssrg_torch" / "csrc").iterdir())
 
 
@@ -88,6 +89,12 @@ def test_chip_smoke_fails_without_a_card(no_cuda):
 
 def test_ell_variants_fails_without_a_card(no_cuda):
     proc = _run(["tools/ell_variants.py"], ROOT)
+    assert proc.returncode == 2, proc.stderr[-2000:]
+    assert not proc.stdout
+
+
+def test_banded_variants_fails_without_a_card(no_cuda):
+    proc = _run(["tools/banded_variants.py"], ROOT)
     assert proc.returncode == 2, proc.stderr[-2000:]
     assert not proc.stdout
 

@@ -17,6 +17,7 @@ import scipy.sparse as sp
 import torch
 
 from ssrg_torch.ops import _nvcc, sparse
+from ssrg_torch.ops import banded_spmm as banded_spmm_module
 from ssrg_torch.ops import ell_spmm as ell_spmm_module
 from ssrg_torch.ops.banded_spmm import banded_spmm, banded_spmm_plain
 from ssrg_torch.ops.ell_spmm import ell_spmm, ell_spmm_plain
@@ -156,18 +157,31 @@ def test_ell_tile_is_the_kernel_sources():
 
 # --- banded SpMM -------------------------------------------------------------
 
-BANDED_CASES = [  # (nb, rb, w, n, f, blocks dtype, round_x[, dense_rows])
+BANDED_CASES = [  # (nb, rb, w, n, f, blocks dtype, round_x[, kind])
     (5, 64, 128, 300, 50, "f32", False),      # ragged F
     (4, 64, 256, 200, 16, "f32", False),      # windows past N, empty row blocks
     (3, 100, 96, 290, 130, "bf16", False),    # rb not a multiple of the tile, F > 128
     (6, 32, 48, 150, 8, "f32", True),         # a bf16 window over f32 blocks
-    (3, 16, 1024, 1300, 128, "f32", False, True),   # rows with every entry nonzero
-    (3, 16, 1040, 1300, 64, "bf16", False, True),   # the same in bf16
+    (3, 16, 1024, 1300, 128, "f32", False, "dense_rows"),   # rows with every entry nonzero
+    (3, 16, 1040, 1300, 64, "bf16", False, "dense_rows"),   # the same in bf16
     (4, 24, 37, 120, 16, "f32", False),       # W not a multiple of 4
     (3, 40, 45, 100, 20, "bf16", False),      # W not a multiple of 8
     (4, 32, 64, 130, 4, "f32", False),        # F = 4
     (4, 64, 256, 400, 128, "f32", False),     # F = 128, the last window past N
     (3, 128, 384, 600, 128, "bf16", False),   # the same in bf16
+    # the tensor-core path's tile edges (128 rows; for F <= 128 a tile of 128
+    # features and 128 window rows a stage, above it 256 features and 64
+    # window rows a stage), all bf16
+    (3, 100, 63, 300, 100, "bf16", False),    # rb 100 < a row tile, W 63 < a stage, F 100
+    (3, 200, 65, 500, 136, "bf16", True),     # rb 200: a ragged second row tile; W 65, not
+                                              # a multiple of 8; F 136: a ragged wide tile
+    (3, 100, 1040, 1300, 8, "bf16", False),   # W 1,040: 8 stages and a ragged one; F 8
+    (3, 200, 256, 700, 256, "bf16", False),   # F 256: one whole wide tile
+    (3, 100, 130, 500, 300, "bf16", False),   # F 300: a wide tile and a ragged one; W 130:
+                                              # 2 wide stages and a ragged one
+    (2, 64, 70, 300, 200, "bf16", False, "misaligned"),    # a wide tile, scalar pack loads
+    (2, 130, 192, 500, 128, "bf16", False, "dense_block"),  # every entry of block 0 nonzero
+    (3, 64, 128, 300, 36, "bf16", False, "misaligned"),    # pack and x off 16-byte alignment
 ]
 
 
@@ -175,13 +189,18 @@ def _bf16(a):
     return torch.from_numpy(np.asarray(a, np.float32)).bfloat16().float().numpy()
 
 
-def _banded_case(nb, rb, w, n, f, dtype, round_x, dense_rows=False, seed=0):
+def _banded_case(nb, rb, w, n, f, dtype, round_x, kind=None, seed=0):
+    """``kind="dense_rows"`` makes every entry of block 0's first three rows
+    nonzero, ``"dense_block"`` every entry of block 0; ``"misaligned"`` is
+    applied by :func:`_banded_tensors`."""
     rng = np.random.default_rng(seed)
     blocks = rng.normal(size=(nb, rb, w)).astype(np.float32)
     blocks[rng.uniform(size=(nb, rb, w)) < 0.7] = 0.0
     blocks[1] = 0.0                                    # an empty row block
-    if dense_rows:  # every entry of the first three rows nonzero
+    if kind == "dense_rows":
         blocks[0, :3] = rng.uniform(0.1, 1.0, size=(3, w)).astype(np.float32)
+    elif kind == "dense_block":
+        blocks[0] = rng.uniform(0.1, 1.0, size=(rb, w)).astype(np.float32)
     los = (rng.integers(0, max(n - w // 2, 1), nb) // 16 * 16).astype(np.int32)
     los[-1] = (n - 8) // 16 * 16                       # its window runs past N
     x = rng.normal(size=(n, f)).astype(np.float32)
@@ -195,9 +214,26 @@ def _banded_case(nb, rb, w, n, f, dtype, round_x, dense_rows=False, seed=0):
     return bt, torch.from_numpy(los), torch.from_numpy(x), expected
 
 
+def _misaligned(t, device):
+    """A contiguous copy of ``t`` on ``device`` one element past an aligned
+    start (2 bytes for bf16, 4 for f32)."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=device)
+    out = buf[1:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+def _banded_tensors(case, device):
+    blocks, los, x, expected = _banded_case(*case)
+    if len(case) > 7 and case[7] == "misaligned":
+        blocks, x = _misaligned(blocks, device), _misaligned(x, device)
+        assert blocks.data_ptr() % 16 and x.data_ptr() % 16
+    return blocks.to(device), los.to(device), x.to(device), expected
+
+
 @pytest.mark.parametrize("case", BANDED_CASES, ids=lambda c: "nb{}_rb{}_w{}_n{}_f{}_{}_{}".format(*c))
 def test_banded_spmm_plain_ragged(case):
-    blocks, los, x, expected = _banded_case(*case)
+    blocks, los, x, expected = _banded_tensors(case, "cpu")
     before = banded_spmm.launches
     out = banded_spmm(blocks, los, x, round_x=case[6])
     assert banded_spmm.launches == before
@@ -214,21 +250,74 @@ def test_banded_spmm_refuses_what_the_kernel_does_not_take():
             banded_spmm(*args)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("round_x", [False, True])
+def test_banded_spmm_path_is_picked_by_the_blocks_type(dtype, round_x):
+    """The path is the blocks' type's, with either window; on the CPU the
+    wrapper runs the plain version and counts no launch on any path."""
+    blocks = torch.zeros((2, 16, 32), dtype=dtype)
+    blocks[:, :, ::3] = 0.5
+    los, x = torch.tensor([0, 16], dtype=torch.int32), torch.randn(40, 8)
+    want = "tensor_core" if dtype == torch.bfloat16 else "stream"
+    assert banded_spmm_module.path(blocks) == want
+    assert banded_spmm_module.PATHS.index(want) == {"stream": 0, "tensor_core": 1}[want]
+    before = dict(banded_spmm.path_launches)
+    out = banded_spmm(blocks, los, x, round_x)
+    assert banded_spmm.path_launches == before
+    torch.testing.assert_close(out, banded_spmm_plain(blocks, los, x, round_x), rtol=0, atol=0)
+
+
+def _banded_tolerance(blocks, los, x, round_x):
+    """Elementwise bound on |kernel - plain| for rows of c nonzero entries,
+    S = sum|a * x| of the row. The stream path adds the same products as the
+    plain version in another order: each within c * 2^-24 * S of the exact
+    sum, 2 * c * 2^-24 * S apart. The tensor-core path (the derivation is in
+    csrc/banded_spmm.cu, on Fasi et al.'s 2021 model of the MMA's sum, which
+    they measured on Volta to Ampere and is assumed for Hopper's wgmma; the
+    card's observed error, chip_smoke.py's max_err_over_tolerance, backs it):
+    an MMA group with g nonzero products loses less than (g + 2) * 2^-23 * S
+    to its alignment and normalization by truncation, 3c * 2^-23 * S over the
+    row, and the plain version's f32 sum c * 2^-24 * S more: 7 * c * 2^-24 *
+    S."""
+    counts = (blocks != 0).sum(dim=2).reshape(-1, 1)
+    factor = 7.0 if banded_spmm_module.path(blocks) == "tensor_core" else 2.0
+    return factor * counts * UNIT_ROUNDOFF * banded_spmm_plain(blocks.abs(), los, x.abs(),
+                                                               round_x)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", BANDED_CASES, ids=lambda c: "nb{}_rb{}_w{}_n{}_f{}_{}_{}".format(*c))
 def test_banded_spmm_kernel_matches_plain(cuda_device, case):
-    blocks, los, x, _ = (t.to(cuda_device) if torch.is_tensor(t) else t
-                         for t in _banded_case(*case))
-    before = banded_spmm.launches
+    blocks, los, x, _ = _banded_tensors(case, cuda_device)
+    chosen = banded_spmm_module.path(blocks)
+    before, before_path = banded_spmm.launches, banded_spmm.path_launches[chosen]
     out = banded_spmm(blocks, los, x, round_x=case[6])
     torch.cuda.synchronize()
     assert banded_spmm.launches == before + 1
-    # the kernel adds only the nonzero entries' products, the plain version
-    # all of them, in another order: c terms for a row of c nonzeros
-    counts = (blocks != 0).sum(dim=2).reshape(-1, 1)
-    tol = 2.0 * counts * UNIT_ROUNDOFF * banded_spmm_plain(blocks.abs(), los, x.abs(), case[6])
+    assert banded_spmm.path_launches[chosen] == before_path + 1
+    assert chosen == ("tensor_core" if case[5] == "bf16" else "stream")
+    tol = _banded_tolerance(blocks, los, x, case[6])
     diff = (out - banded_spmm_plain(blocks, los, x, case[6])).abs()
     assert bool((diff <= tol + 1e-30).all()), float(diff.max())
+
+
+@pytest.mark.cuda
+def test_banded_tensor_core_path_multiplies_zero_entries(cuda_device):
+    """An Inf of x under a zero entry gives NaN on the tensor-core path, as
+    in the plain version and the reference's dense dot; the other outputs
+    stay within the path's bound."""
+    blocks, los, x, _ = _banded_case(3, 64, 128, 300, 16, "bf16", False)
+    k = int((blocks[0, 0] == 0).nonzero()[0])
+    x[int(los[0]) + k, 0] = float("inf")
+    blocks, los, x = blocks.to(cuda_device), los.to(cuda_device), x.to(cuda_device)
+    out = banded_spmm(blocks, los, x)
+    plain = banded_spmm_plain(blocks, los, x)
+    torch.cuda.synchronize()
+    assert bool(out[0, 0].isnan())
+    assert torch.equal(out.isnan(), plain.isnan()) and torch.equal(out.isinf(), plain.isinf())
+    finite = plain.isfinite()
+    tol = _banded_tolerance(blocks, los, x.nan_to_num(posinf=0.0), False)
+    assert bool(((out - plain).abs() <= tol + 1e-30)[finite].all())
 
 
 # --- rest SpMM ----------------------------------------------------------------
