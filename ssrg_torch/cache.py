@@ -24,6 +24,7 @@ import scipy.sparse as sp
 import torch
 
 from ssrg_torch import _msgpack
+from ssrg_torch.logger import span
 from ssrg_torch.utils import DeviceLike, resolve_device
 
 
@@ -67,7 +68,8 @@ def cached_propagate(
             with np.load(path) as z:
                 return torch.as_tensor(z["hops"], device=dev)
     adj_dev = device_adjacency(adj_norm, engine, device=dev, **(engine_kwargs or {}))
-    hops = propagate(adj_dev, x, prop_steps, device=dev)
+    with span("prepare.hops"):
+        hops = propagate(adj_dev, x, prop_steps, device=dev)
     if path is not None:
         np.savez(path, hops=hops.cpu().numpy())
     return hops

@@ -13,6 +13,8 @@ from typing import Optional
 import numpy as np
 import scipy.sparse as sp
 
+from ssrg_torch.logger import span
+
 
 @dataclass
 class Edge:
@@ -52,7 +54,8 @@ def symmetrize_edges(rows, cols, weights, num_nodes: int, clamp_unit: bool = Tru
 
 class Graph:
     """In-memory graph with features and labels; ``.adj`` is the scipy CSR
-    adjacency, built lazily from the edge list: symmetric (both directions
+    adjacency, built lazily from the edge list (the span
+    ``prepare.adjacency``): symmetric (both directions
     of every edge summed) by default, or, with ``symmetrize=False``, the
     directed edges as given (duplicates summed, self-loops dropped), which
     the directed operators (magnetic, two_dir, two_order) need. Unweighted
@@ -84,19 +87,22 @@ class Graph:
     @property
     def adj(self) -> sp.csr_matrix:
         if self._adj is None:
-            n = self.num_node
-            r, c, w = self.edge.row, self.edge.col, self.edge.edge_weight
-            clamp = self.edge_type.endswith("U")
-            if self._symmetrize:
-                self._adj = symmetrize_edges(r, c, w, n, clamp_unit=clamp)
-            else:
-                adj = sp.coo_matrix((w, (r, c)), shape=(n, n)).tocsr()
-                if clamp:
-                    adj.data[:] = np.minimum(adj.data, 1.0)
-                adj.setdiag(0)
-                adj.eliminate_zeros()
-                self._adj = adj
+            with span("prepare.adjacency"):
+                self._adj = self._build_adj()
         return self._adj
+
+    def _build_adj(self) -> sp.csr_matrix:
+        n = self.num_node
+        r, c, w = self.edge.row, self.edge.col, self.edge.edge_weight
+        clamp = self.edge_type.endswith("U")
+        if self._symmetrize:
+            return symmetrize_edges(r, c, w, n, clamp_unit=clamp)
+        adj = sp.coo_matrix((w, (r, c)), shape=(n, n)).tocsr()
+        if clamp:
+            adj.data[:] = np.minimum(adj.data, 1.0)
+        adj.setdiag(0)
+        adj.eliminate_zeros()
+        return adj
 
     @adj.setter
     def adj(self, value):

@@ -41,6 +41,7 @@ import scipy.sparse as sp
 import torch
 from torch.autograd.function import once_differentiable
 
+from ssrg_torch.logger import count, span
 from ssrg_torch.ops.banded_spmm import banded_spmm_plain
 from ssrg_torch.ops.ell_spmm import ell_spmm
 from ssrg_torch.utils import DeviceLike, resolve_device
@@ -95,6 +96,7 @@ class COOAdj:
     n_rows: int
     n_cols: int
     chunk: int
+    nnz: Optional[int] = None  # the real entries, padding left out (None: not known)
 
     @property
     def shape(self) -> Tuple[int, int]:
@@ -103,6 +105,10 @@ class COOAdj:
     @property
     def nnz_padded(self) -> int:
         return int(self.row.shape[0])
+
+    @property
+    def chunks(self) -> int:
+        return -(-self.nnz_padded // self.chunk)
 
     def accumulate(self, out: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
         """``out += A @ x`` in place (the hybrid engine adds its tail into
@@ -136,6 +142,7 @@ class ELLAdj:
     n_rows: int
     n_cols: int
     row_block: int
+    nnz: Optional[int] = None  # the real entries, padding left out (None: not known)
 
     @property
     def shape(self) -> Tuple[int, int]:
@@ -157,7 +164,13 @@ class ELLAdj:
 @dataclass
 class HybridAdj:
     """ELL + COO-tail hybrid: up to ``width`` slots per row in the ELL part,
-    the overflow edges of hub rows in a row-sorted COO tail."""
+    the overflow edges of hub rows in a row-sorted COO tail.
+
+    Its SpMM is the span ``spmm`` around the spans ``spmm.ell`` and
+    ``spmm.tail``, both timed on the stream while a profiler runs, and
+    counts the real entries each term carries (``spmm.ell_nnz``,
+    ``spmm.tail_nnz``, where the pack knows them) and the tail's chunks
+    (``spmm.tail_chunks``): host numbers of the pack, no device read."""
 
     ell: ELLAdj
     tail: COOAdj
@@ -167,7 +180,16 @@ class HybridAdj:
         return self.ell.shape
 
     def spmm(self, x: torch.Tensor) -> torch.Tensor:
-        return self.tail.accumulate(self.ell.spmm(x), x)
+        with span("spmm"):
+            if self.ell.nnz is not None:
+                count("spmm.ell_nnz", self.ell.nnz)
+            if self.tail.nnz is not None:
+                count("spmm.tail_nnz", self.tail.nnz)
+            count("spmm.tail_chunks", self.tail.chunks)
+            with span("spmm.ell", device=True):
+                out = self.ell.spmm(x)
+            with span("spmm.tail", device=True):
+                return self.tail.accumulate(out, x)
 
     def to(self, device: DeviceLike) -> "HybridAdj":
         return HybridAdj(self.ell.to(device), self.tail.to(device))
@@ -385,7 +407,7 @@ def build_coo(adj: sp.spmatrix, chunk: int = 1 << 19) -> COOAdj:
         val = np.concatenate([val, np.zeros(pad, np.float32)])
     return COOAdj(
         torch.from_numpy(row), torch.from_numpy(col), torch.from_numpy(val),
-        n_rows=adj.shape[0], n_cols=adj.shape[1], chunk=chunk,
+        n_rows=adj.shape[0], n_cols=adj.shape[1], chunk=chunk, nnz=nnz,
     )
 
 
@@ -414,7 +436,7 @@ def build_ell(
         cols[rows_of, pos] = csr.indices
         vals[rows_of, pos] = csr.data
     return ELLAdj(torch.from_numpy(cols), torch.from_numpy(vals),
-                  n_rows=n, n_cols=m, row_block=row_block)
+                  n_rows=n, n_cols=m, row_block=row_block, nnz=int(csr.nnz))
 
 
 def build_hybrid(
@@ -439,7 +461,7 @@ def build_hybrid(
         csr.indptr, csr.indices, csr.data, width, n_pad
     )
     ell = ELLAdj(torch.from_numpy(cols), torch.from_numpy(vals),
-                 n_rows=n, n_cols=m, row_block=row_block)
+                 n_rows=n, n_cols=m, row_block=row_block, nnz=int(csr.nnz) - int(tv.size))
     tail = sp.coo_matrix((tv, (tr, tc)), shape=(n, m))
     return HybridAdj(ell, build_coo(tail, chunk=chunk))
 
@@ -654,31 +676,49 @@ def device_adjacency(
     dev = resolve_device(device)
     if engine == "auto":
         engine = "dense" if adj.shape[0] <= dense_threshold else "hybrid"
+    with span("prepare.pack"):
+        built = _build(adj, engine, dev, kwargs)
+    with span("prepare.copy"):
+        if dev.type != "cpu":
+            count("prepare.h2d_bytes", _host_bytes(built))
+        return built.to(dev)
+
+
+def _build(adj: sp.spmatrix, engine: str, dev: torch.device, kwargs: dict) -> Adjacency:
     if engine == "dense":
-        built = build_dense(adj, **kwargs)
-    elif engine == "coo":
-        built = build_coo(adj, **kwargs)
-    elif engine == "ell":
-        built = build_ell(adj, **kwargs)
-    elif engine == "hybrid":
-        built = build_hybrid(adj, **kwargs)
-    elif engine == "pallas":
+        return build_dense(adj, **kwargs)
+    if engine == "coo":
+        return build_coo(adj, **kwargs)
+    if engine == "ell":
+        return build_ell(adj, **kwargs)
+    if engine == "hybrid":
+        return build_hybrid(adj, **kwargs)
+    if engine == "pallas":
         from ssrg_torch.ops.pallas_spmm import build_pallas_csr
 
-        built = build_pallas_csr(adj, **kwargs)
-    elif engine == "blockcoo":
-        built = build_blockcoo(adj, **kwargs)
-    elif engine == "banded":
-        built = build_banded(adj, **kwargs)
-    elif engine == "tiled":
-        built = build_tiled(adj, device=dev, **kwargs)
-    elif engine == "pallas_banded":
+        return build_pallas_csr(adj, **kwargs)
+    if engine == "blockcoo":
+        return build_blockcoo(adj, **kwargs)
+    if engine == "banded":
+        return build_banded(adj, **kwargs)
+    if engine == "tiled":
+        return build_tiled(adj, device=dev, **kwargs)
+    if engine == "pallas_banded":
         from ssrg_torch.ops.pallas_banded import build_pallas_banded
 
-        built = build_pallas_banded(adj, **kwargs)
-    else:
-        raise ValueError(f"unknown spmm engine: {engine!r}")
-    return built.to(dev)
+        return build_pallas_banded(adj, **kwargs)
+    raise ValueError(f"unknown spmm engine: {engine!r}")
+
+
+def _host_bytes(pack) -> int:
+    """The bytes of the host tensors a pack holds (nested packs included):
+    what moving it to a device copies."""
+    if torch.is_tensor(pack):
+        return pack.nbytes if pack.device.type == "cpu" else 0
+    fields = getattr(pack, "__dataclass_fields__", None)
+    if fields is None:
+        return 0
+    return sum(_host_bytes(getattr(pack, name)) for name in fields)
 
 
 def differentiable_adjacency(
@@ -698,7 +738,9 @@ def differentiable_adjacency(
     fwd = device_adjacency(adj, engine, device=dev)
     if not isinstance(fwd, (ELLAdj, HybridAdj)):
         return fwd
-    if adj.shape[0] == adj.shape[1] and (adj != adj.T).nnz == 0:
+    with span("prepare.symmetry_test"):
+        symmetric = adj.shape[0] == adj.shape[1] and (adj != adj.T).nnz == 0
+    if symmetric:
         return DifferentiableAdj(fwd, fwd)
     packed_as = "hybrid" if isinstance(fwd, HybridAdj) else "ell"
     return DifferentiableAdj(fwd, device_adjacency(adj.T.tocsr(), packed_as, device=dev))

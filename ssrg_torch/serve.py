@@ -20,6 +20,7 @@ import numpy as np
 import torch
 
 from ssrg_torch.configs.config import ModelConfig, TrainingConfig
+from ssrg_torch.logger import count, span
 from ssrg_torch.models.zoo import ModelSpec
 from ssrg_torch.train.node_classification import load_checkpoint, prepare, slice_inputs
 from ssrg_torch.utils import DeviceLike, resolve_device
@@ -59,16 +60,23 @@ class Predictor:
 
     @torch.no_grad()
     def logits(self, node_ids) -> torch.Tensor:
-        ids = np.asarray(
-            node_ids.cpu() if torch.is_tensor(node_ids) else node_ids
-        ).reshape(-1).astype(np.int64)
-        if ids.size and (ids.min() < 0 or ids.max() >= self.num_nodes):
-            raise IndexError(f"node ids must lie in [0, {self.num_nodes})")
-        idx = torch.as_tensor(ids, device=self.device)
-        p = self.prepared
-        if p.adj_device is not None:
-            return self.module(p.inputs, p.adj_device)[idx]
-        return self.module(slice_inputs(p, idx))
+        """The logits of ``node_ids``: the span ``serve.request`` around
+        ``serve.ids`` (the ids checked and copied to the device) and
+        ``serve.forward``; ``serve.rows`` counts the ids."""
+        with span("serve.request"):
+            with span("serve.ids"):
+                ids = np.asarray(
+                    node_ids.cpu() if torch.is_tensor(node_ids) else node_ids
+                ).reshape(-1).astype(np.int64)
+                count("serve.rows", int(ids.size))
+                if ids.size and (ids.min() < 0 or ids.max() >= self.num_nodes):
+                    raise IndexError(f"node ids must lie in [0, {self.num_nodes})")
+                idx = torch.as_tensor(ids, device=self.device)
+            with span("serve.forward"):
+                p = self.prepared
+                if p.adj_device is not None:
+                    return self.module(p.inputs, p.adj_device)[idx]
+                return self.module(slice_inputs(p, idx))
 
     def predict_proba(self, node_ids) -> torch.Tensor:
         return torch.softmax(self.logits(node_ids), dim=-1)

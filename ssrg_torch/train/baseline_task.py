@@ -24,7 +24,6 @@ group, its sub-adjacency ``norm(adj[g][:, g])``.
 
 from __future__ import annotations
 
-import time
 from dataclasses import dataclass
 from typing import List, Optional
 
@@ -33,7 +32,7 @@ import scipy.sparse as sp
 import torch
 
 from ssrg_torch.configs.config import TrainingConfig
-from ssrg_torch.logger import RunLogger
+from ssrg_torch.logger import RunLogger, span
 from ssrg_torch.models.baselines import (
     BaselineGAT,
     BaselineGCN,
@@ -51,6 +50,7 @@ from ssrg_torch.ops.sparse import TiledAdj, device_adjacency, differentiable_adj
 from ssrg_torch.train.common import (
     TrainState,
     accuracy,
+    backward_and_update,
     create_train_state,
     cross_entropy_loss,
     seed_everything,
@@ -151,7 +151,7 @@ class BaselineTask:
     After a run, ``state`` holds the train state and ``history`` the last
     run's per-epoch ``loss``, ``train_acc``, ``val_acc`` and ``test_acc``;
     ``prepare_seconds`` is the time the constructor took to pack and
-    propagate."""
+    propagate: its span ``prepare``."""
 
     MODELS = ("mlp", "robust_mlp", "gcn", "sage", "gat", "sgc", "sign")
 
@@ -180,65 +180,71 @@ class BaselineTask:
                 f"(gcn/sage/gat), not {model_name!r}; precompute-family "
                 "baselines minibatch over nodes instead"
             )
-        t0 = time.perf_counter()
-        dev = self.device = resolve_device(device)
-        self.dataset = dataset
-        self.model_name = model_name
-        self.cfg = cfg
-        self.runs = runs
-        self.verbose = verbose
-        self.triplet_weight = triplet_weight
-        self.logger = RunLogger(runs)
-        self.num_classes = dataset.num_classes
-        self.history: dict = {}
-        self.state: Optional[TrainState] = None
+        with span("prepare") as whole:
+            dev = self.device = resolve_device(device)
+            self.dataset = dataset
+            self.model_name = model_name
+            self.cfg = cfg
+            self.runs = runs
+            self.verbose = verbose
+            self.triplet_weight = triplet_weight
+            self.logger = RunLogger(runs)
+            self.num_classes = dataset.num_classes
+            self.history: dict = {}
+            self.state: Optional[TrainState] = None
 
-        engine = cfg.spmm_engine
-        x = torch.as_tensor(np.asarray(dataset.x), dtype=torch.float32, device=dev)
-        f, c = x.shape[1], self.num_classes
-        self.labels = torch.as_tensor(np.asarray(dataset.y), dtype=torch.int64, device=dev)
-        self.idx = {name: torch.as_tensor(np.asarray(getattr(dataset, f"{name}_idx")),
-                                          dtype=torch.int64, device=dev)
-                    for name in ("train", "val", "test")}
+            engine = cfg.spmm_engine
+            x = torch.as_tensor(np.asarray(dataset.x), dtype=torch.float32, device=dev)
+            f, c = x.shape[1], self.num_classes
+            self.labels = torch.as_tensor(np.asarray(dataset.y), dtype=torch.int64, device=dev)
+            self.idx = {name: torch.as_tensor(np.asarray(getattr(dataset, f"{name}_idx")),
+                                              dtype=torch.int64, device=dev)
+                        for name in ("train", "val", "test")}
 
-        self.adj_op = None
-        self.inputs = x
-        if model_name in ("gcn", "sage"):
-            norm = sym_norm(dataset.adj, 0.5) if model_name == "gcn" else mean_norm(dataset.adj)
-            self.adj_op = differentiable_adjacency(norm, engine, device=dev)
-            if forward_only(self.adj_op):
-                raise RuntimeError(
-                    f"{model_name}: engine {engine!r} is forward only (its kernel has no "
-                    "gradient, and the reference fails at its first step there; "
-                    "ROADMAP.md section 3); use 'hybrid'")
-            cls = BaselineGCN if model_name == "gcn" else BaselineSAGE
-            self.module = cls(f, hidden_dim, c, num_layers, dropout)
-        elif model_name == "gat":
-            self.adj_op = EdgeList.from_scipy(dataset.adj).to(dev)
-            self.module = BaselineGAT(f, hidden_dim, c, num_layers, dropout=dropout)
-        elif model_name in ("sgc", "sign"):
-            p = device_adjacency(sym_norm(dataset.adj, 0.5), engine, device=dev)
-            hops = propagate(p, x, prop_steps, device=dev)
-            if model_name == "sgc":
-                self.inputs = hops[-1].clone()
-                self.module = BaselineSGC(f, c)
+            self.adj_op = None
+            self.inputs = x
+            if model_name in ("gcn", "sage"):
+                adj = dataset.adj
+                with span("prepare.normalize"):
+                    norm = sym_norm(adj, 0.5) if model_name == "gcn" else mean_norm(adj)
+                self.adj_op = differentiable_adjacency(norm, engine, device=dev)
+                if forward_only(self.adj_op):
+                    raise RuntimeError(
+                        f"{model_name}: engine {engine!r} is forward only (its kernel has no "
+                        "gradient, and the reference fails at its first step there; "
+                        "ROADMAP.md section 3); use 'hybrid'")
+                cls = BaselineGCN if model_name == "gcn" else BaselineSAGE
+                self.module = cls(f, hidden_dim, c, num_layers, dropout)
+            elif model_name == "gat":
+                self.adj_op = EdgeList.from_scipy(dataset.adj).to(dev)
+                self.module = BaselineGAT(f, hidden_dim, c, num_layers, dropout=dropout)
+            elif model_name in ("sgc", "sign"):
+                adj = dataset.adj
+                with span("prepare.normalize"):
+                    norm = sym_norm(adj, 0.5)
+                p = device_adjacency(norm, engine, device=dev)
+                with span("prepare.hops"):
+                    hops = propagate(p, x, prop_steps, device=dev)
+                if model_name == "sgc":
+                    self.inputs = hops[-1].clone()
+                    self.module = BaselineSGC(f, c)
+                else:
+                    self.inputs = hops
+                    self.module = BaselineSIGN(f, hidden_dim, c, prop_steps + 1, dropout)
+            elif model_name == "mlp":
+                self.module = BaselineMLP(f, hidden_dim, c, num_layers, dropout)
             else:
-                self.inputs = hops
-                self.module = BaselineSIGN(f, hidden_dim, c, prop_steps + 1, dropout)
-        elif model_name == "mlp":
-            self.module = BaselineMLP(f, hidden_dim, c, num_layers, dropout)
-        else:
-            self.module = RobustMLP(f, hidden_dim, c, num_layers, dropout)
+                self.module = RobustMLP(f, hidden_dim, c, num_layers, dropout)
 
-        self.cluster_batches = None
-        if cluster_parts is not None:
-            self.cluster_batches = build_cluster_batches(
-                dataset.adj, cluster_parts, parts_per_batch, engine, cfg.seed,
-                model_kind=model_name, device=dev)
-            self.train_mask = torch.zeros(dataset.num_node, dtype=torch.float32, device=dev)
-            self.train_mask[self.idx["train"]] = 1.0
-        synchronize(dev)
-        self.prepare_seconds = time.perf_counter() - t0
+            self.cluster_batches = None
+            if cluster_parts is not None:
+                self.cluster_batches = build_cluster_batches(
+                    dataset.adj, cluster_parts, parts_per_batch, engine, cfg.seed,
+                    model_kind=model_name, device=dev)
+                self.train_mask = torch.zeros(dataset.num_node, dtype=torch.float32, device=dev)
+                self.train_mask[self.idx["train"]] = 1.0
+            synchronize(dev)
+        self.prepare_seconds = whole.seconds
 
         if run:
             for r in range(runs):
@@ -249,50 +255,51 @@ class BaselineTask:
     def _forward(self, module, inputs, adj):
         return module(inputs) if adj is None else module(inputs, adj)
 
-    def _step(self, state: TrainState, loss: torch.Tensor) -> torch.Tensor:
-        state.optimizer.zero_grad(set_to_none=True)
-        loss.backward()
-        state.apply_gradients()
-        return loss.detach()
-
     def train_step(self, state: TrainState) -> torch.Tensor:
-        """One full-graph update; the loss, detached, on the device."""
+        """One full-graph update; the loss, detached, on the device. The
+        spans of :func:`~ssrg_torch.train.common.train_step`."""
         module = state.module.train()
-        out = self._forward(module, self.inputs, self.adj_op)
-        tr = self.idx["train"]
-        if self.model_name == "robust_mlp":
-            hidden, logp = out
-            loss = -logp[tr].gather(1, self.labels[tr][:, None]).mean()
-            if self.triplet_weight:
-                loss = loss + self.triplet_weight * triplet_loss(
-                    hidden, self.labels, tr, self.num_classes)
-        else:
-            loss = cross_entropy_loss(out[tr], self.labels[tr])
-        return self._step(state, loss)
+        with span("step.forward"):
+            out = self._forward(module, self.inputs, self.adj_op)
+            tr = self.idx["train"]
+            if self.model_name == "robust_mlp":
+                hidden, logp = out
+                loss = -logp[tr].gather(1, self.labels[tr][:, None]).mean()
+                if self.triplet_weight:
+                    loss = loss + self.triplet_weight * triplet_loss(
+                        hidden, self.labels, tr, self.num_classes)
+            else:
+                loss = cross_entropy_loss(out[tr], self.labels[tr])
+        return backward_and_update(state, loss)
 
     def cluster_step(self, state: TrainState, batch: ClusterBatch) -> torch.Tensor:
         """One update on a cluster batch: the loss over its train nodes."""
         module = state.module.train()
         ids = batch.node_ids
-        out = self._forward(module, self.inputs[ids], batch.adj_dev)
-        loss = cross_entropy_loss(out, self.labels[ids], self.train_mask[ids])
-        return self._step(state, loss)
+        with span("step.forward"):
+            out = self._forward(module, self.inputs[ids], batch.adj_dev)
+            loss = cross_entropy_loss(out, self.labels[ids], self.train_mask[ids])
+        return backward_and_update(state, loss)
 
     def train_epoch(self, state: TrainState) -> torch.Tensor:
         """A full-graph update, or one update per cluster batch (their mean
-        loss)."""
-        if self.cluster_batches is None:
-            return self.train_step(state)
-        return torch.stack([self.cluster_step(state, cb) for cb in self.cluster_batches]).mean()
+        loss). The span ``epoch.train``."""
+        with span("epoch.train"):
+            if self.cluster_batches is None:
+                return self.train_step(state)
+            return torch.stack([self.cluster_step(state, cb)
+                                for cb in self.cluster_batches]).mean()
 
     @torch.no_grad()
     def evaluate(self, state: TrainState):
         """Train, val and test accuracy from one full-graph forward, as
-        device scalars."""
-        out = self._forward(state.module.eval(), self.inputs, self.adj_op)
-        logits = out[1] if self.model_name == "robust_mlp" else out
-        return tuple(accuracy(logits[self.idx[k]], self.labels[self.idx[k]])
-                     for k in ("train", "val", "test"))
+        device scalars. The span ``epoch.evaluate`` around ``eval.forward``."""
+        with span("epoch.evaluate"):
+            with span("eval.forward"):
+                out = self._forward(state.module.eval(), self.inputs, self.adj_op)
+            logits = out[1] if self.model_name == "robust_mlp" else out
+            return tuple(accuracy(logits[self.idx[k]], self.labels[self.idx[k]])
+                         for k in ("train", "val", "test"))
 
     def execute(self, run_id: int, seed: int) -> None:
         """One run from a fresh initialization drawn with ``seed``."""

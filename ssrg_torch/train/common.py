@@ -20,6 +20,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ssrg_torch.logger import span
 from ssrg_torch.models.heads import bind_generator
 from ssrg_torch.utils import seed_everything  # noqa: F401  (its home is ssrg_torch.utils)
 
@@ -120,16 +121,27 @@ def train_step(state: TrainState, inputs, labels: torch.Tensor,
     module in training mode, the loss of its logits (rows ``idx`` of a
     full-graph forward when given; a link head's scores of
     ``query_edges``), backward, one optimizer update. Returns the loss,
-    detached, on the device (no host sync)."""
+    detached, on the device (no host sync). The spans ``step.forward``
+    (the loss included), ``step.backward`` and ``step.optimizer``."""
     module = state.module.train()
     kwargs = {} if query_edges is None else {"query_edges": query_edges}
-    logits = module(inputs, **kwargs) if adj is None else module(inputs, adj, **kwargs)
-    if idx is not None:
-        logits = logits[idx]
-    loss = cross_entropy_loss(logits, labels, weights)
-    state.optimizer.zero_grad(set_to_none=True)
-    loss.backward()
-    state.apply_gradients()
+    with span("step.forward"):
+        logits = module(inputs, **kwargs) if adj is None else module(inputs, adj, **kwargs)
+        if idx is not None:
+            logits = logits[idx]
+        loss = cross_entropy_loss(logits, labels, weights)
+    return backward_and_update(state, loss)
+
+
+def backward_and_update(state: TrainState, loss: torch.Tensor) -> torch.Tensor:
+    """The gradients of ``loss`` (the span ``step.backward``, the old
+    gradients cleared first) and one optimizer update (``step.optimizer``);
+    the loss, detached."""
+    with span("step.backward"):
+        state.optimizer.zero_grad(set_to_none=True)
+        loss.backward()
+    with span("step.optimizer"):
+        state.apply_gradients()
     return loss.detach()
 
 

@@ -28,7 +28,6 @@ same epoch loop.
 from __future__ import annotations
 
 import logging
-import time
 from dataclasses import dataclass
 from typing import Any, Optional, Tuple
 
@@ -38,6 +37,7 @@ import torch
 from ssrg_torch.cache import cached_propagate, load_metadata, load_params, save_params
 from ssrg_torch.configs.config import ModelConfig, TrainingConfig
 from ssrg_torch.convert import params_from_jax, params_to_jax
+from ssrg_torch.logger import span
 from ssrg_torch.models.heads import BatchNorm
 from ssrg_torch.models.zoo import (
     COMPLEX_GRAPH_OPS,
@@ -67,7 +67,7 @@ class Prepared:
     inputs: Any                 # [N, D], the hop stack [K+1, N, F] or (re, im)
     hops_layout: bool           # True when inputs is the hop stack
     adj_device: Any = None      # the naive GCN's device adjacency, or (Φ, Φ⁻¹)
-    preprocess_seconds: float = 0.0
+    preprocess_seconds: float = 0.0  # the span ``prepare``
     # the basic engine name, with the meta-engines resolved ("auto" for
     # reorder_*): what a consumer that packs the adjacency again must use
     engine: str = "auto"
@@ -109,14 +109,29 @@ def prepare(
     training_cfg: TrainingConfig,
     device: DeviceLike = "cuda",
 ) -> Prepared:
-    """Run the one-time precompute on ``device``."""
+    """Run the one-time precompute on ``device``: the span ``prepare``,
+    around ``prepare.adjacency`` (the graph's first ``adj``),
+    ``prepare.normalize``, the pack's spans, ``prepare.hops`` and
+    ``prepare.message``; its duration is ``preprocess_seconds``."""
     if not isinstance(spec, ModelSpec):
         raise TypeError(
             f"expected a ModelSpec (from ssrg_torch.models.load_model), got "
             f"{type(spec).__name__}; did you pass the ModelConfig instead?"
         )
-    dev = resolve_device(device)
-    t0 = time.perf_counter()
+    with span("prepare") as whole:
+        prepared = _prepare(spec, dataset, model_cfg, training_cfg, resolve_device(device))
+    prepared.preprocess_seconds = whole.seconds
+    return prepared
+
+
+def _normalized(spec: ModelSpec, dataset, model_cfg: ModelConfig):
+    adj = dataset.adj
+    with span("prepare.normalize"):
+        return spec.construct_adj(adj, model_cfg)
+
+
+def _prepare(spec: ModelSpec, dataset, model_cfg: ModelConfig, training_cfg: TrainingConfig,
+             dev: torch.device) -> Prepared:
     x = np.asarray(dataset.x)
     engine = training_cfg.spmm_engine
     if engine == "autotune":
@@ -136,8 +151,7 @@ def prepare(
 
     def done(inputs, module=spec.module, hops_layout=False, adj_device=None) -> Prepared:
         synchronize(dev)
-        return Prepared(module, inputs, hops_layout, adj_device=adj_device,
-                        preprocess_seconds=time.perf_counter() - t0, engine=basic_engine)
+        return Prepared(module, inputs, hops_layout, adj_device=adj_device, engine=basic_engine)
 
     def raw_features(path: str, adj_device=None) -> Prepared:
         warn_meta(path)
@@ -153,24 +167,27 @@ def prepare(
     if spec.naive:
         from ssrg_torch.ops.sparse import differentiable_adjacency
 
-        adj_norm = spec.construct_adj(dataset.adj, model_cfg)
+        adj_norm = _normalized(spec, dataset, model_cfg)
         return raw_features("naive", differentiable_adjacency(adj_norm, basic_engine,
                                                               device=dev))
     if spec.graph_op is None:
         return raw_features("featureless")
 
-    adj_norm = spec.construct_adj(dataset.adj, model_cfg)
+    adj_norm = _normalized(spec, dataset, model_cfg)
     if isinstance(adj_norm, tuple):
         from ssrg_torch.ops.propagate import propagate_complex, propagate_multi
         from ssrg_torch.ops.sparse import device_adjacency
 
         warn_meta("tuple-adjacency")
         devs = tuple(device_adjacency(a, basic_engine, device=dev) for a in adj_norm)
-        if spec.graph_op in COMPLEX_GRAPH_OPS:
-            re_hops, im_hops = propagate_complex(*devs, x, spec.prop_steps, device=dev)
-            return done((re_hops[-1], im_hops[-1]))
-        stacks = propagate_multi(devs, x, spec.prop_steps, device=dev)
-        return done(torch.cat([h[-1] for h in stacks], dim=-1))
+        with span("prepare.hops"):
+            if spec.graph_op in COMPLEX_GRAPH_OPS:
+                re_hops, im_hops = propagate_complex(*devs, x, spec.prop_steps, device=dev)
+                inputs = (re_hops[-1], im_hops[-1])
+            else:
+                stacks = propagate_multi(devs, x, spec.prop_steps, device=dev)
+                inputs = torch.cat([h[-1] for h in stacks], dim=-1)
+        return done(inputs)
     if is_meta:
         hops = _reorder_propagate(engine, spec, adj_norm, x, model_cfg, training_cfg, dev)
     else:
@@ -184,7 +201,7 @@ def prepare(
     # aggregate now, once
     msg = spec.module.msg_op
     if msg is not None:
-        with torch.no_grad():
+        with span("prepare.message"), torch.no_grad():
             aggregated = msg.to(dev)(hops)
         module = PrecomputeModel(msg_op=None, head=spec.module.head)
     else:
@@ -323,11 +340,12 @@ class NodeClassification:
         then selects."""
         p = self.prepared
         module = state.module.eval()
-        if self.full_graph:
-            out = module(p.inputs, p.adj_device)
-            return out if idx is None else out[self._idx(idx)]
-        ids = self._idx(np.arange(self.dataset.num_node) if idx is None else idx)
-        return module(slice_inputs(p, ids))
+        with span("eval.forward"):
+            if self.full_graph:
+                out = module(p.inputs, p.adj_device)
+                return out if idx is None else out[self._idx(idx)]
+            ids = self._idx(np.arange(self.dataset.num_node) if idx is None else idx)
+            return module(slice_inputs(p, ids))
 
     def _batched_accuracy(self, state: TrainState, idx: np.ndarray,
                           batch_size: int) -> torch.Tensor:
@@ -347,33 +365,36 @@ class NodeClassification:
     def evaluate(self, state: TrainState) -> Tuple[torch.Tensor, torch.Tensor]:
         """Validation and test accuracy, as device scalars: one full-graph
         forward for a naive or spectral model, batched when ``eval_batch_size`` is set,
-        else one forward per split."""
+        else one forward per split. The span ``epoch.evaluate``, each
+        forward an ``eval.forward`` inside it."""
         bs = self.cfg.eval_batch_size
         splits = [self._split["val"], self._split["test"]]
-        if self.full_graph:
-            logits = self.logits(state)
-            return tuple(accuracy(logits[i], self.labels[i]) for i in splits)
-        if bs is not None:
-            return (self._batched_accuracy(state, self.val_idx, bs),
-                    self._batched_accuracy(state, self.test_idx, bs))
-        return tuple(accuracy(self.logits(state, i), self.labels[i]) for i in splits)
+        with span("epoch.evaluate"):
+            if self.full_graph:
+                logits = self.logits(state)
+                return tuple(accuracy(logits[i], self.labels[i]) for i in splits)
+            if bs is not None:
+                return (self._batched_accuracy(state, self.val_idx, bs),
+                        self._batched_accuracy(state, self.test_idx, bs))
+            return tuple(accuracy(self.logits(state, i), self.labels[i]) for i in splits)
 
     def train_epoch(self, state: TrainState, np_rng: np.random.Generator) -> torch.Tensor:
         """One epoch: a full-batch step, or the reference's minibatches
         (shuffled by ``np_rng``, padded last batch weighing 0). Returns the
-        mean loss on the device."""
+        mean loss on the device. The span ``epoch.train``."""
         p, cfg = self.prepared, self.cfg
         idx = self._split["train"]
-        if self.full_graph:
-            return train_step(state, p.inputs, self.labels[idx], idx=idx, adj=p.adj_device)
-        if cfg.train_batch_size is None:
-            return train_step(state, slice_inputs(p, idx), self.labels[idx])
-        losses = []
-        for batch, w in batch_iterator(self.train_idx, cfg.train_batch_size, np_rng):
-            b = self._idx(batch)
-            losses.append(train_step(state, slice_inputs(p, b), self.labels[b],
-                                     torch.as_tensor(w, device=self.device)))
-        return torch.stack(losses).mean()
+        with span("epoch.train"):
+            if self.full_graph:
+                return train_step(state, p.inputs, self.labels[idx], idx=idx, adj=p.adj_device)
+            if cfg.train_batch_size is None:
+                return train_step(state, slice_inputs(p, idx), self.labels[idx])
+            losses = []
+            for batch, w in batch_iterator(self.train_idx, cfg.train_batch_size, np_rng):
+                b = self._idx(batch)
+                losses.append(train_step(state, slice_inputs(p, b), self.labels[b],
+                                         torch.as_tensor(w, device=self.device)))
+            return torch.stack(losses).mean()
 
     def _save(self, module, has_bn: bool, epoch: int, best_val: float, best_test: float) -> None:
         save_params(
