@@ -292,10 +292,11 @@ def phase_build() -> None:
     """Build every kernel from its source, one ``nvcc`` each, all at once."""
     from ssrg_torch.ops import _nvcc
 
+    names = (*KERNELS, "coo_spmm")  # the COO kernel replaces no TPU kernel
     t0 = time.perf_counter()
-    logs = _nvcc.build(KERNELS, force=True, extra_flags=["-Xptxas=-v"])
+    logs = _nvcc.build(names, force=True, extra_flags=["-Xptxas=-v"])
     seconds = time.perf_counter() - t0
-    for name in KERNELS:
+    for name in names:
         ptxas = [ln.strip() for ln in logs[name].splitlines()
                  if "registers" in ln or "spill" in ln]
         emit({"phase": "build", "source": f"ssrg_torch/csrc/{name}.cu",
@@ -447,9 +448,52 @@ def ell_case(name: str, cols, vals, x, timed: bool, tail=None) -> dict:
     })
     rec["gather_gb_per_s"] = rec["gather_bytes"] / rec["ms"] / 1e6
     if tail is not None:
-        acc = torch.zeros((tail.n_rows, x.shape[1]), dtype=torch.float32, device=x.device)
-        rec["tail_nnz"] = int((tail.val != 0).sum())
-        rec["tail_index_add_ms"] = cuda_ms(lambda: tail.accumulate(acc, x))
+        rec["tail"] = tail_case(f"{name} tail", tail, x)
+    return against_bound(name, rec)
+
+
+def tail_case(name: str, tail, x) -> dict:
+    """A hybrid pack's COO tail on ``coo_accumulate``: one launch, held
+    against ``coo_accumulate_plain`` within ``2 (c + 1) u sum|v x|`` (c a
+    row's entries), timed beside it and ``torch.sparse.mm`` on the CSR of
+    the same entries, against its bound: the entries (row, column, value),
+    every x row and out row they touch, each moved once over 3.35 TB/s."""
+    import torch
+
+    from ssrg_torch.ops.coo_spmm import coo_accumulate, coo_accumulate_plain
+
+    row, col, val = tail.row, tail.col, tail.val
+    nnz = tail.nnz if tail.nnz is not None else tail.nnz_padded
+    if nnz == 0:
+        return {"kernel": "coo_accumulate", "entries": 0}
+    f = x.shape[1]
+    zeros = torch.zeros((tail.n_rows, f), dtype=torch.float32, device=x.device)
+    before = coo_accumulate.launches
+    out_k = tail.accumulate(zeros.clone(), x)
+    check(coo_accumulate.launches == before + 1, f"{name}: coo_accumulate did not launch once")
+    out_p = coo_accumulate_plain(row, col, val, x, zeros.clone(), nnz)
+    counts = torch.bincount(row[:nnz].long(), minlength=tail.n_rows)[:, None]
+    magnitude = coo_accumulate_plain(row, col, val.abs(), x.abs(), zeros.clone(), nnz)
+    max_abs_err = hold(name, out_k, out_p, 2.0 * (counts + 1) * UNIT_ROUNDOFF * magnitude + 1e-30)
+    del out_k, out_p, magnitude, counts
+    x_rows = int(torch.unique(col[:nnz]).numel())
+    out_rows = int(torch.unique(row[:nnz]).numel())
+    crow = torch.zeros(tail.n_rows + 1, dtype=torch.int64, device=x.device)
+    crow[1:] = torch.cumsum(torch.bincount(row[:nnz].long(), minlength=tail.n_rows), 0)
+    csr = torch.sparse_csr_tensor(crow, col[:nnz].long(), val[:nnz],
+                                  size=(tail.n_rows, x.shape[0]))
+    acc = zeros
+    rec = {"kernel": "coo_accumulate", "entries": nnz, "f": f, "x_rows": x_rows,
+           "out_rows": out_rows, "max_abs_err": max_abs_err,
+           "tolerance": "2*(c+1)*2^-24*sum|v*x| elementwise, c a row's entries",
+           "ms": cuda_ms(lambda: tail.accumulate(acc, x)),
+           "plain_ms": cuda_ms(lambda: coo_accumulate_plain(row, col, val, x, acc, nnz)),
+           "library_ms": cuda_ms(lambda: torch.sparse.mm(csr, x)),
+           "library": "torch.sparse.mm on the CSR of the same entries (no add into out)",
+           **bound(nnz * 12 + (x_rows + out_rows) * f * 4, 2.0 * nnz * f, F32_FLOPS_PER_S),
+           # the x rows the kernel reads, one per entry, from L2 or memory
+           "gather_bytes": nnz * f * 4}
+    rec["gather_gb_per_s"] = rec["gather_bytes"] / rec["ms"] / 1e6
     return against_bound(name, rec)
 
 
@@ -2630,7 +2674,7 @@ def baseline_gradient_check(name: str, task, adj_norm) -> dict:
                 m, e = masks[i] * p, masks[i] * e_p
         e_z = e_p
         # the checked forward is the model's, up to the summation order of
-        # the tail's index_add_ (atomics: not bitwise repeatable)
+        # the COO tail's atomics (not bitwise repeatable)
         check(bool(((z - z_model).abs() <= e_z + 1e-30).all()),
               f"{name}: the checked forward is not the model's")
         # backward, from the loss gradient at the logits

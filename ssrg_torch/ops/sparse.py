@@ -7,8 +7,11 @@ reference's packs entry for entry:
 
 - ``DenseAdj``  — the adjacency as a dense matrix; SpMM is ``torch.matmul``
   (the reference leaves it to XLA's ``jnp.dot``).
-- ``COOAdj``    — row-sorted COO padded to a multiple of ``chunk``; SpMM
-  gathers, scales and ``index_add_``s one chunk at a time.
+- ``COOAdj``    — row-sorted COO padded to a multiple of ``chunk``; SpMM is
+  the hand-written CUDA kernel of :mod:`ssrg_torch.ops.coo_spmm`, one launch
+  that gathers, scales and sums each row's run in registers (on the CPU its
+  plain version, which gathers, scales and ``index_add_``s a chunk at a
+  time).
 - ``ELLAdj``    — row-padded ELLPACK; SpMM is the hand-written CUDA kernel
   of :mod:`ssrg_torch.ops.ell_spmm` (its plain version on the CPU).
 - ``HybridAdj`` — ELL for the first ``width`` neighbours of each row plus a
@@ -22,10 +25,10 @@ reference's packs entry for entry:
   scattered edges (hybrid, blockcoo, or the segmented rest of
   :mod:`ssrg_torch.ops.pallas_rest`).
 - ``BlockCOOAdj`` — COO bucketed by row bucket x column bucket.
-- ``DifferentiableAdj`` — an ELL or hybrid pack under autograd: forward on
-  the pack of A, backward (``A^T g``) on the pack of ``A^T``, both through
-  the ELL kernel; :func:`differentiable_adjacency` builds it for the naive
-  GCN path.
+- ``DifferentiableAdj`` — an ELL, hybrid or COO pack under autograd:
+  forward on the pack of A, backward (``A^T g``) on the pack of ``A^T``, both
+  through the same kernels; :func:`differentiable_adjacency` builds it for
+  the naive GCN path.
 
 All engines accumulate in float32; banded blocks and tiles may be stored in
 bf16, and their windows of x are then rounded to bf16 before the products.
@@ -42,6 +45,7 @@ import torch
 from torch.autograd.function import once_differentiable
 
 from ssrg_torch.logger import count, span
+from ssrg_torch.ops import coo_spmm
 from ssrg_torch.ops.banded_spmm import banded_spmm_plain
 from ssrg_torch.ops.ell_spmm import ell_spmm
 from ssrg_torch.utils import DeviceLike, resolve_device
@@ -87,8 +91,10 @@ class DenseAdj:
 @dataclass
 class COOAdj:
     """Row-sorted COO padded to a multiple of ``chunk``; padding entries are
-    ``row = col = 0, val = 0``. SpMM bounds the gathered block at
-    ``chunk x F``."""
+    ``row = col = 0, val = 0``. SpMM adds the real entries (all of them where
+    ``nnz`` is not known) with :func:`ssrg_torch.ops.coo_spmm.coo_accumulate`:
+    the kernel in one launch on a card, the plain version on the CPU, whose
+    gathered block ``chunk`` bounds at ``chunk x F``."""
 
     row: torch.Tensor  # int32 [nnz_pad]
     col: torch.Tensor  # int32 [nnz_pad]
@@ -114,12 +120,13 @@ class COOAdj:
         """``out += A @ x`` in place (the hybrid engine adds its tail into
         the ELL result this way instead of allocating a second [N, F])."""
         _check_rows(x, self.n_cols)
-        for s in range(0, self.nnz_padded, self.chunk):
-            r = self.row[s:s + self.chunk]
-            c = self.col[s:s + self.chunk]
-            v = self.val[s:s + self.chunk]
-            out.index_add_(0, r, x.index_select(0, c) * v[:, None])
-        return out
+        return coo_spmm.coo_accumulate(self.row, self.col, self.val, x, out, self.nnz,
+                                       self.chunk)
+
+    def launches(self, device: torch.device) -> int:
+        """The launches :meth:`accumulate` takes on ``device``."""
+        entries = self.nnz_padded if self.nnz is None else self.nnz
+        return coo_spmm.launches(entries, self.chunk, device)
 
     def spmm(self, x: torch.Tensor) -> torch.Tensor:
         out = torch.zeros((self.n_rows, x.shape[1]), dtype=torch.float32,
@@ -169,8 +176,10 @@ class HybridAdj:
     Its SpMM is the span ``spmm`` around the spans ``spmm.ell`` and
     ``spmm.tail``, both timed on the stream while a profiler runs, and
     counts the real entries each term carries (``spmm.ell_nnz``,
-    ``spmm.tail_nnz``, where the pack knows them) and the tail's chunks
-    (``spmm.tail_chunks``): host numbers of the pack, no device read."""
+    ``spmm.tail_nnz``, where the pack knows them), the tail's chunks
+    (``spmm.tail_chunks``) and the launches the tail takes
+    (``spmm.tail_launches``: 1 on the kernel, 3 a chunk on the plain
+    version): host numbers of the pack, no device read."""
 
     ell: ELLAdj
     tail: COOAdj
@@ -186,6 +195,7 @@ class HybridAdj:
             if self.tail.nnz is not None:
                 count("spmm.tail_nnz", self.tail.nnz)
             count("spmm.tail_chunks", self.tail.chunks)
+            count("spmm.tail_launches", self.tail.launches(x.device))
             with span("spmm.ell", device=True):
                 out = self.ell.spmm(x)
             with span("spmm.tail", device=True):
@@ -328,8 +338,9 @@ class BlockCOOAdj:
 
 class _TransposedSpmm(torch.autograd.Function):
     """``A @ x`` on the forward pack; its gradient ``A^T g`` on the pack of
-    ``A^T``. Both packs run the ELL kernel (its plain version on the CPU);
-    the COO tail of a hybrid is a torch ``index_add_`` in both."""
+    ``A^T``. Both packs run the ELL kernel and the COO kernel (their plain
+    versions on the CPU): an ELL pack the first, a COO pack the second, a
+    hybrid both."""
 
     @staticmethod
     def forward(ctx, x, fwd, bwd):
@@ -344,17 +355,17 @@ class _TransposedSpmm(torch.autograd.Function):
 
 @dataclass
 class DifferentiableAdj:
-    """An ELL or hybrid adjacency whose SpMM carries gradients to ``x``.
+    """An ELL, hybrid or COO adjacency whose SpMM carries gradients to ``x``.
 
     ``bwd`` is the same format packed from ``A^T`` (the same object when
     ``A`` equals ``A^T``): the gradient of ``A @ x`` is ``A^T @ g``, the same
     kernel on the transposed pack. A hybrid's transpose has its own width and
     its own tail. The reference's XLA engines get this from autodiff; the
-    port's kernel writes through a raw pointer and has no gradient of its
+    port's kernels write through a raw pointer and have no gradient of their
     own. The adjacency's values take no gradient."""
 
-    fwd: Union[ELLAdj, HybridAdj]
-    bwd: Union[ELLAdj, HybridAdj]
+    fwd: Union[ELLAdj, HybridAdj, COOAdj]
+    bwd: Union[ELLAdj, HybridAdj, COOAdj]
 
     @property
     def shape(self) -> Tuple[int, int]:
@@ -727,20 +738,20 @@ def differentiable_adjacency(
     device: DeviceLike = "cuda",
 ) -> Adjacency:
     """:func:`device_adjacency` for a path that differentiates through the
-    SpMM (the naive GCN's layers). An ELL or hybrid pack comes back as a
-    :class:`DifferentiableAdj` whose gradient runs the kernel on the pack of
-    ``A^T``, built here on the host next to the forward pack; that pack is
+    SpMM (the naive GCN's layers). An ELL, hybrid or COO pack comes back as
+    a :class:`DifferentiableAdj` whose gradient runs the kernels on the pack
+    of ``A^T``, built here on the host next to the forward pack; that pack is
     reused only when ``A`` equals ``A^T`` exactly. The other packs come back
-    as they are: dense and coo are torch operations, and ``pallas`` stays
+    as they are: dense is a torch operation, and ``pallas`` stays
     forward-only, as in the reference, where jax cannot differentiate its
     ``pallas_call``."""
     dev = resolve_device(device)
     fwd = device_adjacency(adj, engine, device=dev)
-    if not isinstance(fwd, (ELLAdj, HybridAdj)):
+    if not isinstance(fwd, (ELLAdj, HybridAdj, COOAdj)):
         return fwd
     with span("prepare.symmetry_test"):
         symmetric = adj.shape[0] == adj.shape[1] and (adj != adj.T).nnz == 0
     if symmetric:
         return DifferentiableAdj(fwd, fwd)
-    packed_as = "hybrid" if isinstance(fwd, HybridAdj) else "ell"
+    packed_as = {HybridAdj: "hybrid", ELLAdj: "ell", COOAdj: "coo"}[type(fwd)]
     return DifferentiableAdj(fwd, device_adjacency(adj.T.tocsr(), packed_as, device=dev))

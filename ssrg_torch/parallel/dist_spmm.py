@@ -15,9 +15,10 @@ SpMM against what arrived:
   receive buffers taking turns, and each rank multiplies the bucket of the
   block that is visiting while the next one is in flight.
 
-The local engines: the padded COO segment sum (``index_add_`` in chunks),
-the hybrid (ELL slots on the ELL kernel :func:`ssrg_torch.ops.ell_spmm.ell_spmm`,
-the COO tail on ``index_add_``), the tiled engine (dense tiles as
+The local engines: the padded COO segment sum (the COO kernel
+:func:`ssrg_torch.ops.coo_spmm.coo_accumulate`), the hybrid (ELL slots on the
+ELL kernel :func:`ssrg_torch.ops.ell_spmm.ell_spmm`, the COO tail on the COO
+kernel), the tiled engine (dense tiles as
 ``torch.bmm`` into their row blocks, the rest on the hybrid term) and, for
 the ring, one hybrid pack per (shard, source block) bucket, one ELL launch
 each on the visiting block.
@@ -40,6 +41,7 @@ import scipy.sparse as sp
 import torch
 import torch.distributed as dist
 
+from ssrg_torch.ops.coo_spmm import coo_accumulate
 from ssrg_torch.ops.ell_spmm import ell_spmm
 from ssrg_torch.ops.sparse import _GROUP_BYTES
 from ssrg_torch.parallel.mesh import Mesh
@@ -53,13 +55,6 @@ def _own(arr: np.ndarray, mesh: Mesh, axis: str) -> torch.Tensor:
         raise ValueError(f"the partition has {arr.shape[0]} shards but mesh axis {axis!r} "
                          f"has size {mesh.shape[axis]}")
     return torch.from_numpy(np.ascontiguousarray(arr[mesh.coords[axis]])).to(mesh.device)
-
-
-def _accumulate(out: torch.Tensor, rows, cols, vals, table: torch.Tensor, chunk: int) -> None:
-    """``out += segment_sum(table[cols] * vals, rows)`` in ``chunk`` slices."""
-    for s in range(0, rows.shape[0], chunk):
-        out.index_add_(0, rows[s:s + chunk],
-                       table.index_select(0, cols[s:s + chunk]) * vals[s:s + chunk, None])
 
 
 class _HopClock:
@@ -189,11 +184,11 @@ def shard_features(x: np.ndarray, part, mesh: Mesh, axis: str = "graph") -> torc
 
 
 def _local_spmm(rows, cols, vals, x_full: torch.Tensor, block: int, chunk: int) -> torch.Tensor:
-    """Segment sum of this shard's edges against the gathered feature
-    matrix, ``chunk`` edges at a time."""
+    """Segment sum of this shard's edges (padding included: row 0, weight
+    0) against the gathered feature matrix; ``chunk`` edges at a time on the
+    CPU."""
     out = torch.zeros((block, x_full.shape[1]), dtype=torch.float32, device=x_full.device)
-    _accumulate(out, rows, cols, vals, x_full, chunk)
-    return out
+    return coo_accumulate(rows, cols, vals, x_full, out, chunk=chunk)
 
 
 def _exchange_propagate(adj, x_sharded: torch.Tensor, prop_steps: int, stats: Optional[dict],
@@ -350,7 +345,7 @@ def dist_propagate_ring(adj: ShardedAdjRing, x_sharded: torch.Tensor, prop_steps
     a COO segment sum while the next block moves."""
 
     def multiply(acc, src, visiting):
-        _accumulate(acc, adj.rows[src], adj.cols[src], adj.vals[src], visiting, 1 << 19)
+        coo_accumulate(adj.rows[src], adj.cols[src], adj.vals[src], visiting, acc)
 
     return _ring_propagate(x_sharded, prop_steps, adj.mesh, adj.axis, multiply, stats,
                            adj.block)
@@ -490,17 +485,17 @@ def _exchange_table(h_block: torch.Tensor, send: Optional[torch.Tensor], mesh: M
 
 
 def _hybrid_term(adj, table: torch.Tensor) -> torch.Tensor:
-    """ELL slots on the ELL kernel, then the tail added on ``index_add_``."""
+    """ELL slots on the ELL kernel, then the tail added on the COO kernel."""
     out = ell_spmm(adj.ell_cols, adj.ell_vals, table)
-    _accumulate(out, adj.tail_rows, adj.tail_cols, adj.tail_vals, table, adj.tail_chunk)
-    return out
+    return coo_accumulate(adj.tail_rows, adj.tail_cols, adj.tail_vals, table, out,
+                          chunk=adj.tail_chunk)
 
 
 def dist_propagate_hybrid(adj: ShardedHybridAdj, x_sharded: torch.Tensor, prop_steps: int,
                           row_block: int = 256, stats: Optional[dict] = None) -> torch.Tensor:
     """K hops with the hybrid local engine: per hop the exchange (all-gather,
-    or the halo's ``all_to_all_single``), then one ELL kernel launch and the
-    tail's ``index_add_`` against the table. ``row_block`` is the
+    or the halo's ``all_to_all_single``), then one ELL kernel launch and one
+    COO kernel launch for the tail against the table. ``row_block`` is the
     reference's scan block; the kernel takes the whole pack at once."""
     return _exchange_propagate(adj, x_sharded, prop_steps, stats,
                                lambda table: _hybrid_term(adj, table), adj.send_idx,
@@ -715,13 +710,13 @@ def dist_propagate_ring_hybrid(adj: ShardedAdjRingHybrid, x_sharded: torch.Tenso
                                stats: Optional[dict] = None) -> torch.Tensor:
     """The ring of :func:`dist_propagate_ring` with a hybrid pack per bucket:
     each visiting block takes one ELL launch on its bucket (D a hop) and the
-    bucket's tail on ``index_add_``. ``row_block`` is the reference's scan
+    bucket's tail on the COO kernel. ``row_block`` is the reference's scan
     block, unused by the kernel."""
 
     def multiply(acc, src, visiting):
         acc += ell_spmm(adj.ell_cols[src], adj.ell_vals[src], visiting)
-        _accumulate(acc, adj.tail_rows[src], adj.tail_cols[src], adj.tail_vals[src], visiting,
-                    adj.tail_chunk)
+        coo_accumulate(adj.tail_rows[src], adj.tail_cols[src], adj.tail_vals[src], visiting,
+                       acc, chunk=adj.tail_chunk)
 
     return _ring_propagate(x_sharded, prop_steps, adj.mesh, adj.axis, multiply, stats,
                            adj.block)

@@ -17,11 +17,12 @@ Each hop: for each (destination block i, source block j) bucket, ``acc_i
   nonzero row degrees, a power of two of at least 8, packed by
   :func:`ssrg_torch.native.ell_hybrid_pack`). The ELL part runs the ELL
   kernel (:func:`ssrg_torch.ops.ell_spmm.ell_spmm`) on the ``[block, F]``
-  source block, the tail an ``index_add_``. The packs stay on the host, in
+  source block, the tail the COO kernel
+  (:func:`ssrg_torch.ops.coo_spmm.coo_accumulate`). The packs stay on the host, in
   pinned memory when the device is a card, and go to the device one at a
   time; the reference keeps every pack on the device for the whole run
   (ROADMAP.md section 3).
-- ``coo``: each bucket as padded COO, gathered, scaled and ``index_add_``-ed.
+- ``coo``: each bucket as padded COO on the COO kernel.
 """
 
 from __future__ import annotations
@@ -36,10 +37,11 @@ import numpy as np
 import torch
 
 from ssrg_torch.data.streaming import StreamingGraphMeta, load_shard
+from ssrg_torch.ops.coo_spmm import coo_accumulate
 from ssrg_torch.ops.ell_spmm import ell_spmm
 from ssrg_torch.utils import DeviceLike, resolve_device, synchronize
 
-_CHUNK = 1 << 20  # bounds a gathered edge slice at _CHUNK x F
+_CHUNK = 1 << 20  # bounds a gathered edge slice at _CHUNK x F (the COO plain version)
 
 
 def _pow2_pad(n: int, floor: int = 1 << 12) -> int:
@@ -132,13 +134,6 @@ def _host(a: np.ndarray, pin: bool) -> torch.Tensor:
     return t.pin_memory() if pin else t
 
 
-def _accumulate_coo(acc: torch.Tensor, rows, cols, vals, x: torch.Tensor) -> None:
-    """``acc += segment_sum(x[cols] * vals, rows)`` in ``_CHUNK`` slices."""
-    for s in range(0, rows.shape[0], _CHUNK):
-        acc.index_add_(0, rows[s:s + _CHUNK],
-                       x.index_select(0, cols[s:s + _CHUNK]) * vals[s:s + _CHUNK, None])
-
-
 def outofcore_propagate(
     meta: StreamingGraphMeta,
     features_path: str,
@@ -218,7 +213,7 @@ def outofcore_propagate(
                             pack.vals.to(dev, non_blocking=True), xj)
             if pack.tail is not None:
                 tr, tc, tv = (t.to(dev, non_blocking=True) for t in pack.tail)
-                _accumulate_coo(acc, tr, tc, tv, xj)
+                coo_accumulate(tr, tc, tv, xj, acc, chunk=_CHUNK)
             return
         r, c, v, off = buckets[i]
         lo, hi = int(off[j]), int(off[j + 1])
@@ -226,7 +221,7 @@ def outofcore_propagate(
         padded = [np.zeros(n_pad, dt) for dt in (np.int32, np.int32, np.float32)]
         for dst, src in zip(padded, (r, c, v)):
             dst[: hi - lo] = src[lo:hi]
-        _accumulate_coo(acc, *(torch.from_numpy(a).to(dev) for a in padded), xj)
+        coo_accumulate(*(torch.from_numpy(a).to(dev) for a in padded), xj, acc, chunk=_CHUNK)
 
     hop_s = []
     for h in range(prop_steps):

@@ -683,3 +683,29 @@ def test_world_of_one_nccl_rank_matches_propagate(cuda_device):
         assert ell_spmm.launches == (0 if engine in ("coo", "ring") else 3), engine
         assert float((hops[:, : x.shape[0]] - want).abs().max()) <= 1e-4, engine
     dist.destroy_process_group()
+
+
+@pytest.mark.cuda
+def test_shard_coo_term_on_the_card_matches_plain(cuda_device):
+    """A shard's local COO term (row-sorted entries padded with row 0 and
+    weight 0 after the last row, as ``partition_rows`` packs them) on the
+    COO kernel, one launch, against the plain chunked loop on the same
+    tensors, within ``2 (c + 1) u sum|v x|``, c a row's entry count."""
+    from ssrg_torch.ops.coo_spmm import coo_accumulate, coo_accumulate_plain
+
+    p, x = _graph(n=3000, f=47, seed=5)
+    part = partition.partition_rows(p, 2)
+    assert part.rows[0, -1] == 0 and part.vals[0, -1] == 0   # padded
+    rows, cols, vals = (torch.from_numpy(np.ascontiguousarray(a[0])).to(cuda_device)
+                        for a in (part.rows, part.cols, part.vals))
+    xt = torch.from_numpy(partition.pad_features(x, part)).to(cuda_device)
+    before = coo_accumulate.launches
+    got = dist_spmm._local_spmm(rows, cols, vals, xt, part.block, 1 << 19)
+    torch.cuda.synchronize()
+    assert coo_accumulate.launches == before + 1
+    zeros = torch.zeros_like(got)
+    want = coo_accumulate_plain(rows, cols, vals, xt, zeros.clone())
+    counts = torch.bincount(rows.long(), minlength=part.block)[:, None]
+    mag = coo_accumulate_plain(rows, cols, vals.abs(), xt.abs(), zeros.clone())
+    diff = (got - want).abs()
+    assert bool((diff <= 2.0 * (counts + 1) * 2.0 ** -24 * mag + 1e-30).all()), float(diff.max())

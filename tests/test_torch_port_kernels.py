@@ -1,4 +1,4 @@
-"""The kernel wrappers of ``ssrg_torch`` (ELL, banded and rest SpMM): each
+"""The kernel wrappers of ``ssrg_torch`` (ELL, banded, rest and COO SpMM): each
 plain version against a float64 numpy product on ragged packs, each
 wrapper's refusals, and, on a CUDA card, each hand-written kernel against
 its plain version.
@@ -20,6 +20,7 @@ from ssrg_torch.ops import _nvcc, sparse
 from ssrg_torch.ops import banded_spmm as banded_spmm_module
 from ssrg_torch.ops import ell_spmm as ell_spmm_module
 from ssrg_torch.ops.banded_spmm import banded_spmm, banded_spmm_plain
+from ssrg_torch.ops.coo_spmm import coo_accumulate, coo_accumulate_plain
 from ssrg_torch.ops.ell_spmm import ell_spmm, ell_spmm_plain
 from ssrg_torch.ops.pallas_rest import build_rest_segmented
 from ssrg_torch.ops.rest_spmm import rest_spmm, rest_spmm_plain
@@ -400,6 +401,184 @@ def test_rest_spmm_kernel_matches_plain(cuda_device, case):
     assert bool((diff <= tol + 1e-30).all()), float(diff.max())
 
 
+# --- COO segmented sum -------------------------------------------------------
+
+COO_CASES = [  # (n_rows, n_cols, f, kind)
+    (300, 400, 64, "hub"),          # one row of 3,000 entries: a dozen segments
+    (300, 400, 256, "hub"),         # the same at F = 256: two float4 tiles
+    (500, 300, 47, "straddle"),     # rows of 1 to 600 entries: runs across segment edges
+    (500, 300, 1, "straddle"),      # F = 1
+    (500, 300, 3, "straddle"),      # F = 3
+    (500, 300, 64, "straddle"),     # F = 64
+    (500, 300, 256, "straddle"),    # F = 256
+    (200, 200, 64, "misaligned"),   # x and out 4 bytes off 16-byte alignment: scalar lanes
+    (200, 200, 47, "padded"),       # build_coo's pack, its trailing padding left out by nnz
+    (200, 200, 64, "padded_all"),   # the same pack summed over every entry (nnz None)
+    (200, 200, 64, "unsorted"),     # a shard's entries, padded with row 0 after the last row
+    (200, 200, 64, "empty"),        # no entry at all (build_coo's one padded chunk)
+    (260, 100, 130, "last_row"),    # 700 entries on row n_rows - 1; F = 130: a ragged tile
+]
+
+
+def _coo_id(case):
+    return "n{}_m{}_f{}_{}".format(*case)
+
+
+def _coo_case(n_rows, n_cols, f, kind, seed=0):
+    """``(row, col, val, x, out, nnz)`` on the CPU: ``out`` holds random
+    values (a hybrid adds its tail into the ELL term's result), ``nnz`` is
+    what the caller passes (None: every entry)."""
+    rng = np.random.default_rng(seed)
+    lengths = rng.integers(0, 12, n_rows)
+    if kind == "hub":
+        lengths = rng.integers(0, 8, n_rows)
+        lengths[7] = 3000
+    elif kind == "straddle":
+        lengths = rng.integers(1, 601, n_rows)
+    elif kind == "last_row":
+        lengths = rng.integers(0, 3, n_rows)
+        lengths[-1] = 700
+    elif kind == "empty":
+        lengths[:] = 0
+    rows = np.repeat(np.arange(n_rows), lengths)
+    cols = rng.integers(0, n_cols, rows.size)
+    vals = rng.normal(size=rows.size).astype(np.float32)
+    nnz = None
+    if kind in ("padded", "padded_all", "empty"):
+        pack = sparse.build_coo(sp.coo_matrix((vals, (rows, cols)), shape=(n_rows, n_cols)),
+                                chunk=512)
+        assert pack.nnz_padded > pack.nnz
+        row, col, val = pack.row, pack.col, pack.val
+        nnz = None if kind == "padded_all" else pack.nnz
+    else:
+        if kind == "unsorted":
+            rows, cols = (np.concatenate([a, np.zeros(300, a.dtype)]) for a in (rows, cols))
+            vals = np.concatenate([vals, np.zeros(300, np.float32)])
+        row = torch.from_numpy(rows.astype(np.int32))
+        col = torch.from_numpy(cols.astype(np.int32))
+        val = torch.from_numpy(vals)
+    x = torch.from_numpy(rng.normal(size=(n_cols, f)).astype(np.float32))
+    out = torch.from_numpy(rng.normal(size=(n_rows, f)).astype(np.float32))
+    return row, col, val, x, out, nnz
+
+
+def _coo_tensors(case, device):
+    """A ``COO_CASES`` entry on ``device``; a ``"misaligned"`` case's x and
+    out are contiguous but 4 bytes off 16-byte alignment."""
+    row, col, val, x, out, nnz = _coo_case(*case)
+    if case[3] == "misaligned":
+        x, out = _misaligned(x, device), _misaligned(out, device)
+        assert x.data_ptr() % 16 and out.data_ptr() % 16
+    return row.to(device), col.to(device), val.to(device), x.to(device), out.to(device), nnz
+
+
+@pytest.mark.parametrize("case", COO_CASES, ids=_coo_id)
+def test_coo_accumulate_plain_ragged(case):
+    row, col, val, x, out, nnz = _coo_tensors(case, "cpu")
+    n = row.shape[0] if nnz is None else nnz
+    want = out.numpy().astype(np.float64)
+    np.add.at(want, row[:n].numpy(),
+              val[:n].numpy()[:, None].astype(np.float64) * x.numpy()[col[:n].numpy()])
+    before = coo_accumulate.launches
+    got = coo_accumulate(row, col, val, x, out, nnz, chunk=1000)
+    assert got is out and coo_accumulate.launches == before  # the plain version, in place
+    np.testing.assert_allclose(out.numpy(), want, rtol=3e-5, atol=3e-5)
+
+
+def test_coo_adj_on_the_cpu_is_the_old_chunk_loop():
+    """``COOAdj.accumulate`` on CPU tensors equals the chunked
+    ``index_select``, scaling and ``index_add_`` over every padded entry bit
+    for bit, and counts no kernel launch: three torch operations a chunk."""
+    row, col, val, x, out, _ = _coo_case(500, 300, 47, "straddle")
+    adj = sp.coo_matrix((val.numpy(), (row.numpy(), col.numpy())), shape=(500, 300))
+    pack = sparse.build_coo(adj, chunk=1 << 14)
+    assert pack.chunks > 1 and pack.nnz_padded > pack.nnz
+    old = out.clone()
+    for s in range(0, pack.nnz_padded, pack.chunk):
+        r, c, v = (t[s:s + pack.chunk] for t in (pack.row, pack.col, pack.val))
+        old.index_add_(0, r, x.index_select(0, c) * v[:, None])
+    before = coo_accumulate.launches
+    got = pack.accumulate(out, x)
+    assert coo_accumulate.launches == before
+    assert got is out and torch.equal(out, old)
+    assert pack.launches(torch.device("cpu")) == 3 * pack.chunks
+    assert pack.launches(torch.device("cuda")) == 1
+    assert sparse.build_coo(sp.coo_matrix((300, 300))).launches(torch.device("cuda")) == 0
+
+
+def test_coo_accumulate_refuses_what_the_kernel_does_not_take():
+    row, col, val, x, out, _ = _coo_case(50, 40, 8, "straddle")
+    for args in ((row.long(), col, val, x, out), (row, col.long(), val, x, out),
+                 (row, col, val.double(), x, out), (row, col, val, x.double(), out),
+                 (row, col, val, x, out.double()), (row, col[:-1], val, x, out),
+                 (row[None], col, val, x, out), (row, col, val, x[0], out),
+                 (row, col, val, x, out[:, :5]), (row, col, val, x.t(), out),
+                 (row[::2], col[::2], val[::2], x, out),
+                 (row, col, val, x, torch.empty(50, 8, device="meta"))):
+        with pytest.raises(TypeError):
+            coo_accumulate(*args)
+    with pytest.raises(TypeError):
+        coo_accumulate(row, col, val, x, out, nnz=row.shape[0] + 1)
+    for grad in ("val", "x", "out"):
+        args = dict(row=row, col=col, val=val, x=x, out=out.clone())
+        args[grad] = args[grad].clone().requires_grad_()
+        with pytest.raises(RuntimeError, match="differentiable_adjacency"):
+            coo_accumulate(**args)
+        with torch.no_grad():
+            coo_accumulate(**args)
+
+
+def _coo_tolerance(row, col, val, x, out, nnz):
+    """The kernel sums a row's terms in entry order within a segment and the
+    segments' partial sums by atomics, the plain version in its own order:
+    each within ``(c + 1) u (|out| + sum |v x|)`` of the exact sum, c the
+    row's entry count, so they differ by at most twice that."""
+    n = row.shape[0] if nnz is None else nnz
+    counts = torch.bincount(row[:n].long(), minlength=out.shape[0])[:, None]
+    mag = coo_accumulate_plain(row, col, val.abs(), x.abs(), out.abs(), nnz)
+    return 2.0 * (counts + 1) * UNIT_ROUNDOFF * mag + 1e-30
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", COO_CASES, ids=_coo_id)
+def test_coo_accumulate_kernel_matches_plain(cuda_device, case):
+    row, col, val, x, out, nnz = _coo_tensors(case, cuda_device)
+    want = coo_accumulate_plain(row, col, val, x, out.clone(), nnz)
+    tol = _coo_tolerance(row, col, val, x, out, nnz)
+    before = coo_accumulate.launches
+    got = coo_accumulate(row, col, val, x, out, nnz)
+    torch.cuda.synchronize()
+    assert got is out
+    entries = row.shape[0] if nnz is None else nnz
+    assert coo_accumulate.launches == before + (entries > 0)
+    diff = (out - want).abs()
+    assert bool((diff <= tol).all()), float(diff.max())
+
+
+@pytest.mark.cuda
+def test_coo_kernel_leaves_out_the_padding_it_is_told_of(cuda_device):
+    """Given the real entry count, the kernel does not add the pack's padding
+    (row 0, column 0, value 0): with an Inf in x's row 0 and no real entry
+    on column 0, out stays finite, where summing every entry (nnz None) makes
+    out's row 0 NaN there, as the plain version and the reference do."""
+    row, col, val, x, out, _ = _coo_case(200, 200, 64, "straddle")
+    keep = col != 0
+    real = sp.coo_matrix((val[keep].numpy(), (row[keep].numpy(), col[keep].numpy())),
+                         shape=(200, 200))
+    pack = sparse.build_coo(real, chunk=1 << 14)
+    assert pack.nnz_padded > pack.nnz
+    pack = pack.to(cuda_device)
+    x, out = x.to(cuda_device), out.to(cuda_device)
+    x[0, 3] = float("inf")
+    told = pack.accumulate(out.clone(), x)
+    every = coo_accumulate(pack.row, pack.col, pack.val, x, out.clone())
+    plain = coo_accumulate_plain(pack.row, pack.col, pack.val, x, out.clone())
+    torch.cuda.synchronize()
+    assert bool(told.isfinite().all())
+    assert bool(every[0, 3].isnan()) and bool(plain[0, 3].isnan())
+    assert int(every.isnan().sum()) == 1 and bool(every.isfinite().sum() == every.numel() - 1)
+
+
 # --- gradients: the ELL kernel under autograd, the forward-only kernels ------
 
 
@@ -469,11 +648,12 @@ def _hybrid_grad_check(r, f, device):
     x0 = torch.from_numpy(rng.normal(size=(3000, f)).astype(np.float32)).to(device)
     g = torch.from_numpy(rng.normal(size=(3000, f)).astype(np.float32)).to(device)
     x = x0.clone().requires_grad_()
-    before = ell_spmm.launches
+    before, before_coo = ell_spmm.launches, coo_accumulate.launches
     dadj.spmm(x).backward(g)
     if device.type == "cuda":
         torch.cuda.synchronize()
         assert ell_spmm.launches == before + 2
+        assert coo_accumulate.launches == before_coo + 2
     x_plain = x0.clone().requires_grad_()
     fwd, tail = dadj.fwd.ell, dadj.fwd.tail
     out = ell_spmm_plain(fwd.cols, fwd.vals, x_plain)[:3000]

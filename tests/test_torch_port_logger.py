@@ -328,6 +328,8 @@ def test_a_gcn_epoch_gives_nine_spmm_spans(spans):
     assert counts["spmm.tail_nnz"] == 9 * pack.tail.nnz
     assert counts["spmm.ell_nnz"] == 9 * pack.ell.nnz
     assert counts["spmm.tail_chunks"] == 9 * pack.tail.chunks
+    # the plain version on the CPU: three torch operations a chunk
+    assert counts["spmm.tail_launches"] == 9 * 3 * pack.tail.chunks
     assert sum(r["counts"].get("spmm.tail_nnz", 0) for r in recs) == 9 * pack.tail.nnz
     top = [(r["name"], r["parent"]) for r in recs if r["name"] in
            ("epoch.train", "step.forward", "step.backward", "step.optimizer",

@@ -47,7 +47,7 @@ from ssrg_torch.models import heads
 from ssrg_torch.models.zoo import load_model
 from ssrg_torch.ops.ell_spmm import ell_spmm
 from ssrg_torch.ops.normalize import sym_norm
-from ssrg_torch.ops.sparse import DenseAdj, DifferentiableAdj, differentiable_adjacency
+from ssrg_torch.ops.sparse import COOAdj, DenseAdj, DifferentiableAdj, differentiable_adjacency
 from ssrg_torch.serve import Predictor
 from ssrg_torch.train import common
 from ssrg_torch.train.node_classification import NodeClassification, prepare
@@ -424,9 +424,14 @@ def test_ell_function_gradient_is_the_transpose(engine):
 
 @pytest.mark.parametrize("engine", ["dense", "coo"])
 def test_torch_engines_stay_plain_under_autograd(engine):
+    """The dense engine stays a torch product under autograd; the coo
+    engine, a kernel that refuses a gradient, carries it as a
+    ``DifferentiableAdj`` over the pack of A^T (A is not symmetric here)."""
     adj = sym_norm(planetoid_like(num_node=100, num_classes=2, num_features=4, seed=1).adj, 0.3)
     dadj = differentiable_adjacency(adj, engine, device=CPU)
-    assert not isinstance(dadj, DifferentiableAdj)
+    assert isinstance(dadj, DifferentiableAdj) == (engine == "coo")
+    if engine == "coo":
+        assert not dadj.symmetric and isinstance(dadj.bwd, COOAdj)
     x = torch.ones(100, 3, requires_grad=True)
     dadj.spmm(x).sum().backward()
     np.testing.assert_allclose(x.grad.numpy()[:, 0], np.asarray(adj.sum(axis=0)).ravel(),
