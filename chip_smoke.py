@@ -16,7 +16,11 @@ Phases, each printing JSON lines:
               the headline hybrid pack (the serving path's own shapes), the
               power-law pack, the headline pack folded onto an x that fits
               in L2, and ragged packs; times from CUDA events for the
-              kernel, the plain version and one PyTorch library call.
+              kernel, the plain version and one PyTorch library call. The
+              GAT attention kernels (``gat_case``) on the power-law graph's
+              attention listing at 4 heads of 128 and of 47 (the GAT cell's
+              widths): each step held to its plain version within its
+              sum-order bound and timed beside it and its bound.
 3. slice    — the serving path at full width: GAMLP (hidden 256, 3 layers,
               K = 3, 40 classes) on a 169,343-node, F = 128 random graph,
               through ``Predictor`` with ``engine="auto"`` (hybrid), random
@@ -86,7 +90,11 @@ Phases, each printing JSON lines:
               bound), GAT (2 layers, 8 heads of 64; held to a float64 dense
               oracle on a 2,000-node subgraph), MLP, robust MLP with the
               triplet term, SGC and SIGN (K = 3 on the kernel in
-              ``prepare``); then the GCN on 128 cluster parts, 8 a batch.
+              ``prepare``); the published GAT (3 layers, 4 heads of 128,
+              skip linears, bias, self-loops) on the attention kernels, 12,
+              6, 3 and 3 launches an epoch of the statistics, weighted sum,
+              row dot and backward kernels; then the GCN on 128 cluster
+              parts, 8 a batch.
               Each: ``prepare`` seconds, epoch and evaluation times, peak
               device memory, launches checked, best val >= 0.25. SAGE's
               packs (A, and A^T as the backward) timed at F = 256.
@@ -212,10 +220,13 @@ def kernel_wrappers() -> dict:
 
 
 def reset_launches() -> None:
+    from ssrg_torch.ops.gat_attention import gat_attention
+
     for fn in kernel_wrappers().values():
         fn.launches = 0
     banded = kernel_wrappers()["banded_spmm"]
     banded.path_launches = dict.fromkeys(banded.path_launches, 0)
+    gat_attention.kernel_launches = dict.fromkeys(gat_attention.kernel_launches, 0)
 
 
 def read_launches() -> dict:
@@ -292,7 +303,7 @@ def phase_build() -> None:
     """Build every kernel from its source, one ``nvcc`` each, all at once."""
     from ssrg_torch.ops import _nvcc
 
-    names = (*KERNELS, "coo_spmm")  # the COO kernel replaces no TPU kernel
+    names = (*KERNELS, "coo_spmm", "gat_attention")  # these two replace no TPU kernel
     t0 = time.perf_counter()
     logs = _nvcc.build(names, force=True, extra_flags=["-Xptxas=-v"])
     seconds = time.perf_counter() - t0
@@ -495,6 +506,127 @@ def tail_case(name: str, tail, x) -> dict:
            "gather_bytes": nnz * f * 4}
     rec["gather_gb_per_s"] = rec["gather_bytes"] / rec["ms"] / 1e6
     return against_bound(name, rec)
+
+
+# (heads, head width) of the GAT cell's attention: its hidden layers, its last
+GAT_SHAPES = ((4, 128), (4, 47))
+GAT_SLOPE = 0.2
+
+
+def gat_case(name: str, edges, h: int, c: int, gen) -> dict:
+    """The four attention kernels of ``ops/gat_attention.py`` on the
+    attention listing ``edges`` at ``h`` heads of ``c``, random z, scores
+    and output gradient: each step's kernel held to its plain version on
+    the same card tensors (the same inputs, so only the order of the f32
+    sums and the exponent's rounding differ), timed beside it against its
+    bound: the listing, every ``[N, H]`` and ``[N, H, C]`` operand and
+    result moved once over 3.35 TB/s. Returns each kernel's record.
+
+    Bounds, elementwise, k a node's entries (the listing is symmetric) and
+    T = 16 + 2 max|a - m| in units of u = 2^-24 for one alpha or exponent
+    term (expf and the division, each path, and the exponent's argument
+    rounded once more where nvcc fuses it): the row maxima exact; the sums
+    ``(2k + T) u l``; the weighted sum ``(2k + T) u sum alpha |z|``; the row
+    dot ``2 (c + 1) u sum |g out|``; dz ``(2k + T) u sum alpha |g|``; both
+    scores' gradients ``(2 (c + k) + T + 6) u M``, M the sum of ``alpha
+    (sum |g z| + |delta|) leaky'``, which the plain backward pass gives on
+    the operands' absolute values."""
+    import torch
+
+    from ssrg_torch.ops import gat_attention as ga
+
+    u, n, e, dev = UNIT_ROUNDOFF, edges.num_nodes, edges.nnz, edges.row.device
+    row, col, t_row, t_col = edges.row, edges.col, edges.t_row, edges.t_col
+    z = torch.randn((n, h, c), generator=gen).to(dev)
+    s_src = torch.randn((n, h), generator=gen).to(dev)
+    s_dst = torch.randn((n, h), generator=gen).to(dev)
+    g = torch.randn((n, h, c), generator=gen).to(dev)
+    k = torch.bincount(row.long(), minlength=n).double()[:, None]
+    check(torch.equal(torch.bincount(t_row.long(), minlength=n).double()[:, None], k),
+          f"{name}: the listing is not symmetric")
+    before = dict(ga.gat_attention.kernel_launches)
+    m_k, l_k = ga.softmax_stats(row, col, s_src, s_dst, e, GAT_SLOPE)
+    m, l = ga.softmax_stats_plain(row, col, s_src, s_dst, e, GAT_SLOPE)
+    check(torch.equal(m_k, m), f"{name}: the row maxima differ from the plain version's")
+    a_max = float((s_dst.abs().amax() + s_src.abs().amax() + m.abs().amax()))
+    t = 16.0 + 2.0 * a_max
+    err = {"gat_stats_kernel": hold(f"{name} stats", l_k, l,
+                                    ((2 * k + t) * u * l).float() + 1e-30)}
+    out_k = ga.aggregate(row, col, s_src, s_dst, m, l, z, e, GAT_SLOPE)
+    out = ga.aggregate_plain(row, col, s_src, s_dst, m, l, z, e, GAT_SLOPE)
+    mag = ga.aggregate_plain(row, col, s_src, s_dst, m, l, z.abs(), e, GAT_SLOPE)
+    err["gat_aggregate_kernel"] = hold(f"{name} aggregate", out_k, out,
+                                       ((2 * k[..., None] + t) * u * mag).float() + 1e-30)
+    del out_k, mag
+    q_k = ga.rowdot(g, out, s_dst, m, l)
+    q = ga.rowdot_plain(g, out, s_dst, m, l)
+    check(torch.equal(q_k[..., :3], q[..., :3]), f"{name}: rowdot's packed values differ")
+    err["gat_rowdot_kernel"] = hold(f"{name} rowdot", q_k[..., 3], q[..., 3],
+                                    2 * (c + 1) * u * (g * out).abs().sum(-1) + 1e-30)
+    del q_k
+    grads_k = ga.backward(t_row, t_col, q, s_src, z, g, e, GAT_SLOPE)
+    grads = ga.backward_plain(t_row, t_col, q, s_src, z, g, e, GAT_SLOPE)
+    q_abs = q.clone()
+    q_abs[..., 3] = -q[..., 3].abs()
+    mags = ga.backward_plain(t_row, t_col, q_abs, s_src, z.abs(), g.abs(), e, GAT_SLOPE)
+    tols = ((2 * k[..., None] + t) * u * mags[0],
+            (2 * (c + k) + t + 6) * u * mags[1], (2 * (c + k) + t + 6) * u * mags[2])
+    err["gat_backward_kernel"] = max(
+        hold(f"{name} backward {what}", got, want, tol.float() + 1e-30)
+        for what, got, want, tol in zip(("dz", "ds_src", "ds_dst"), grads_k, grads, tols))
+    del grads_k, grads, mags, tols, q_abs
+    launched = {kk: v - before[kk] for kk, v in ga.gat_attention.kernel_launches.items()}
+    check(launched == {"gat_stats_kernel": 2, "gat_aggregate_kernel": 1,
+                       "gat_rowdot_kernel": 1, "gat_backward_kernel": 1},
+          f"{name}: the steps launched {launched}")
+    f32, nh, nhc = 4, n * h, n * h * c
+    timed = {  # kernel: (step, its plain version, compulsory bytes, operations)
+        "gat_stats_kernel": (
+            lambda: ga.softmax_stats(row, col, s_src, s_dst, e, GAT_SLOPE),
+            lambda: ga.softmax_stats_plain(row, col, s_src, s_dst, e, GAT_SLOPE),
+            f32 * (4 * e + 7 * nh), 7.0 * e * h),
+        "gat_aggregate_kernel": (
+            lambda: ga.aggregate(row, col, s_src, s_dst, m, l, z, e, GAT_SLOPE),
+            lambda: ga.aggregate_plain(row, col, s_src, s_dst, m, l, z, e, GAT_SLOPE),
+            f32 * (2 * e + 2 * nhc + 4 * nh), 2.0 * e * h * c),
+        "gat_rowdot_kernel": (
+            lambda: ga.rowdot(g, out, s_dst, m, l),
+            lambda: ga.rowdot_plain(g, out, s_dst, m, l),
+            f32 * (2 * nhc + 7 * nh), 2.0 * nhc),
+        "gat_backward_kernel": (
+            lambda: ga.backward(t_row, t_col, q, s_src, z, g, e, GAT_SLOPE),
+            lambda: ga.backward_plain(t_row, t_col, q, s_src, z, g, e, GAT_SLOPE),
+            f32 * (2 * e + 3 * nhc + 7 * nh), 4.0 * e * h * c),
+    }
+    recs = {}
+    for kernel, (step, plain, nbytes, flops) in timed.items():
+        rec = {"phase": "kernels", "case": f"{name} {kernel}", "kernel": kernel,
+               "nodes": n, "entries": e, "heads": h, "c": c,
+               "max_row_entries": int(k.max()), "vec4": c % 4 == 0,
+               "max_abs_err": err[kernel], "tolerance": "elementwise sum-order bound "
+               "(gat_case's docstring), T = %.2f" % t,
+               "ms": cuda_ms(step), "plain_ms": cuda_ms(plain, iters=5),
+               **bound(nbytes, flops, F32_FLOPS_PER_S)}
+        recs[kernel] = against_bound(f"{name} {kernel}", rec)
+        emit(rec)
+    return recs
+
+
+def phase_gat(adj) -> dict:
+    """The attention kernels on the attention listing of ``adj`` (the
+    power-law graph, with one self-loop a node) at each of
+    ``GAT_SHAPES``: each kernel's records by shape."""
+    import torch
+
+    from ssrg_torch.models.baselines import EdgeList
+
+    edges = EdgeList.attention(adj).to("cuda")
+    gen = torch.Generator().manual_seed(SEED)
+    recs = {f"h{h}_c{c}": gat_case(f"gat powerlaw h{h} c{c}", edges, h, c, gen)
+            for h, c in GAT_SHAPES}
+    del edges
+    torch.cuda.empty_cache()
+    return recs
 
 
 def phase_kernels(headline, powerlaw) -> dict:
@@ -1160,27 +1292,34 @@ TRAIN_GRAPH = dict(num_node=NUM_NODES, num_classes=NUM_CLASSES, num_features=NUM
                    p_out=1e-5, seed=SEED)
 
 
-def time_epochs(task) -> dict:
+def time_epochs(task, attention: bool = False) -> dict:
     """Wrap ``task``'s ``train_epoch`` and ``evaluate`` so that each call
     in the run is timed on the host clock, ending in a synchronize (the
-    host epoch loop waits for each epoch's accuracies anyway), and its
-    ``ell_spmm`` launches counted. Returns the lists the times and counts go
-    into."""
+    host epoch loop waits for each epoch's accuracies anyway), its
+    ``ell_spmm`` launches counted, and with ``attention`` the attention
+    kernels' by kernel. Returns the lists the times and counts go into."""
     import torch
+
+    from ssrg_torch.ops.gat_attention import gat_attention
 
     ell = kernel_wrappers()["ell_spmm"]
     times = {"train_epoch_ms": [], "eval_ms": [], "train_epoch_launches": [],
              "eval_launches": []}
+    if attention:
+        times.update(train_epoch_attention=[], eval_attention=[])
 
     def timed(fn, key):
         def run(*args, **kwargs):
             torch.cuda.synchronize()
-            before = ell.launches
+            before, attn = ell.launches, dict(gat_attention.kernel_launches)
             t0 = time.perf_counter()
             out = fn(*args, **kwargs)
             torch.cuda.synchronize()
             times[f"{key}_ms"].append((time.perf_counter() - t0) * 1e3)
             times[f"{key}_launches"].append(ell.launches - before)
+            if attention:
+                times[f"{key}_attention"].append(
+                    {k: v - attn[k] for k, v in gat_attention.kernel_launches.items()})
             return out
         return run
 
@@ -2547,7 +2686,7 @@ def baseline_run(ds, name: str, kw: dict, tc) -> tuple:
     reset_launches()
     task = BaselineTask(ds, name, tc, run=False, device="cuda", **kw)
     prepare_launches = read_launches()
-    times = time_epochs(task)
+    times = time_epochs(task, attention=name == "gat")
     t1 = time.perf_counter()
     task.execute(0, seed=tc.seed)
     torch.cuda.synchronize()
@@ -2724,6 +2863,42 @@ def baseline_gradient_check(name: str, task, adj_norm) -> dict:
             "first_weight_grad_err_over_bound_max": float((err_w / (tol_w + 1e-30)).max())}
 
 
+# the published GAT (PyG's ogbn_products_gat.py widths) and each attention
+# kernel's launches an epoch: 3 layers' forward in training and in evaluation
+# (the statistics twice, the weighted sum once), 3 backward (row dot, pass)
+GAT_PUBLISHED = dict(hidden_dim=128, num_layers=3, heads=4, published=True)
+GAT_EPOCH_LAUNCHES = {"gat_stats_kernel": 12, "gat_aggregate_kernel": 6,
+                      "gat_rowdot_kernel": 3, "gat_backward_kernel": 3}
+
+
+def gat_published_run(ds, tc) -> dict:
+    """The published GAT through ``BaselineTask`` on the card, as
+    :func:`baseline_run` runs a baseline (every count set to 0 just before
+    it): no ELL launch, none of the attention kernels in ``prepare``, and
+    ``GAT_EPOCH_LAUNCHES`` an epoch, its training and evaluation together.
+    Returns each attention kernel's launches in the run."""
+    from ssrg_torch.ops.gat_attention import gat_attention
+
+    task, rec = baseline_run(ds, "gat", GAT_PUBLISHED, tc)
+    check_baseline_launches("gat published", rec, 0, 0)
+    epochs = [{k: t[k] + v[k] for k in t}
+              for t, v in zip(rec["train_epoch_attention"], rec["eval_attention"])]
+    check(epochs == [GAT_EPOCH_LAUNCHES] * rec["epochs"],
+          f"gat published: epochs launched {epochs}, expected {GAT_EPOCH_LAUNCHES} each")
+    run = dict(gat_attention.kernel_launches)
+    check(run == {k: n * rec["epochs"] for k, n in GAT_EPOCH_LAUNCHES.items()},
+          f"gat published: the run launched {run} (prepare included)")
+    check(all(np.isfinite(rec["losses"])), f"gat published losses {rec['losses']}")
+    check(rec["best_val"] >= 0.25, f"gat published best val {rec['best_val']} < 0.25")
+    check(task.adj_op.t_row is not None and task.adj_op.nnz == ds.adj.nnz + ds.num_node,
+          "gat published: not the attention listing with its self-loops")
+    rec.update(phase="baseline", run="gat_published", **GAT_PUBLISHED, nodes=ds.num_node,
+               features=ds.num_features, entries=task.adj_op.nnz,
+               attention_launches_per_epoch=GAT_EPOCH_LAUNCHES)
+    emit(rec)
+    return run
+
+
 def gat_oracle_check(task, ds) -> dict:
     """The trained GAT's card forward on the subgraph induced by the first
     ``GAT_ORACLE_NODES`` nodes of BFS order (a connected neighbourhood)
@@ -2818,12 +2993,19 @@ def phase_baseline(graph: dict = None) -> dict:
                 cases[case].update(phase="baseline", pack_reused_as_transpose=False)
                 emit(cases[case])
         if name == "gat":
+            check(all(not any(d.values()) for d in rec.pop("train_epoch_attention")
+                      + rec.pop("eval_attention")),
+                  "gat: the reference's form launched the attention kernels")
             rec.update(gat_oracle_check(task, ds))
         emit(rec)
         launches[f"baseline_{name}"] = rec["launches"]["ell_spmm"]
         stage_s[name] = time.perf_counter() - t0
         del task
         torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    gat_launches = gat_published_run(ds, tc)
+    stage_s["gat_published"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
     t0 = time.perf_counter()
     task, rec = baseline_run(ds, "gcn", {**BASELINE_RUNS[0][1], **CLUSTER}, tc)
     per_batch = [6 if isinstance(cb.adj_dev, DifferentiableAdj) else 0
@@ -2841,7 +3023,7 @@ def phase_baseline(graph: dict = None) -> dict:
     del task
     torch.cuda.empty_cache()
     emit({"phase": "baseline_stages", "seconds": stage_s})
-    return {"launches": launches, "cases": cases}
+    return {"launches": launches, "cases": cases, "attention_launches": gat_launches}
 
 
 # --- single-card out-of-core propagation and training ---------------------------
@@ -3620,6 +3802,7 @@ def main() -> int:
 
     recs = phase_kernels(packs["headline"], packs["powerlaw"])
     del packs
+    gat_recs = phase_gat(pg.adj)
     launches = {"ell_spmm": phase_slice(ds, adj_norm)}
     phase_layers(ds, prop_steps=3)
     del ds, adj_norm, pg
@@ -3704,7 +3887,19 @@ def main() -> int:
                                              "max_err_over_tolerance", "tolerance")}}
                       for p, (rec, n) in banded_by_path.items()}}
            if name == "banded_spmm" else {}),
-    } for name in KERNELS]})
+    } for name in KERNELS] + [{
+        # the attention kernels replace no TPU kernel (the reference's GAT is XLA)
+        "name": kernel, "route": "cuda", "source": "ssrg_torch/csrc/gat_attention.cu",
+        "replaces": None, "launches": baseline["attention_launches"][kernel],
+        "launches_by_path": {"baseline_gat_published": baseline["attention_launches"][kernel]},
+        "max_abs_err": rec["max_abs_err"], "ms": rec["ms"], "kernel_ms": rec["ms"],
+        "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
+        "shape": {"heads": rec["heads"], "c": rec["c"], "entries": rec["entries"]},
+        "cases": {shape: {k: by_kernel[kernel][k] for k in
+                          ("heads", "c", "ms", "plain_ms", "bound_ms", "bound_by",
+                           "bound_share", "max_abs_err")}
+                  for shape, by_kernel in gat_recs.items()},
+    } for kernel, rec in gat_recs["h%d_c%d" % GAT_SHAPES[0]].items()]})
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True)

@@ -1,0 +1,536 @@
+// Graph attention (GAT) edge attention for Hopper (sm_90a), forward and backward.
+//
+// The entries of the attention's edge structure are listed by destination
+// (row = i, col = j: a message from j to i), sorted by row; H heads of C
+// features each, z = [N, H, C], the scores s_src, s_dst = [N, H]:
+//
+//   pre[e, h]   = s_dst[i, h] + s_src[j, h]
+//   a[e, h]     = pre > 0 ? pre : slope * pre                       (LeakyReLU)
+//   m[i, h]     = max of a over i's entries,  l[i, h] = sum of exp(a - m[i, h])
+//   alpha[e, h] = exp(a - m[i, h]) / l[i, h]
+//   out[i, h, :] = sum over i's entries of alpha[e, h] * z[j, h, :]
+//
+// and, given g = dL/dout:
+//
+//   delta[i, h]  = <g[i, h, :], out[i, h, :]>           (= sum over i's entries of alpha * dalpha)
+//   dz[j, h, :]  = sum over the entries (i <- j) of alpha * g[i, h, :]
+//   dalpha       = <g[i, h, :], z[j, h, :]>
+//   dpre         = alpha * (dalpha - delta[i, h]) * (pre > 0 ? 1 : slope)
+//   ds_src[j, h] += dpre,  ds_dst[i, h] += dpre
+//
+// Replaces no TPU kernel: the JAX package's GAT (ssrg_tpu/models/baselines.py)
+// leaves the scores, the segment softmax and the weighted sum to XLA, and builds
+// the per-edge messages z[j] * alpha as one [E, H, C] array. At ogbn-products'
+// size with self-loops (126,167,309 entries, H = 4, C = 128) that array is 258 GB
+// a layer, more than three cards hold, and autograd keeps arrays of its kind for
+// the backward pass. These kernels hold no per-edge message: a message is
+// gathered, scaled and summed in registers, and only [N, H] statistics (m, l,
+// delta) stay between the kernels; alpha is recomputed where it is needed from
+// them and the scores, never stored.
+//
+// What bounds them: the gathers. Each entry of the weighted sum reads one C-float
+// slice of z (512 bytes at C = 128) from a data-dependent row; at the cell's size
+// that is 258 GB a pass over all heads (77 ms at the H100 SXM data sheet's
+// 3.35 TB/s), from a z of 5.0 GB that does not fit in the 50 MB L2. The backward
+// pass gathers g the same way. The compulsory bytes (the entries, z or g, out or
+// dz, each once) are some twenty times fewer. The statistics read 4 bytes of
+// s_src an entry and head (s_src, 39 MB, mostly stays in L2).
+//
+// What the design does about it:
+// - Four kernels, three launches forward and two backward. gat_stats_kernel runs
+//   twice (kPhase 0: the row maxima m; 1: the row sums l) over the entries, one
+//   thread an entry, every head in turn: a warp's 32 consecutive entries are
+//   reduced by row in registers (a segmented reduction by shuffles: entries are
+//   sorted by row, so a row's entries in the warp are consecutive) and each run's
+//   first lane adds its result into m or l with one atomic. gat_aggregate_kernel
+//   is the weighted sum. gat_rowdot_kernel computes delta and packs the row-side
+//   values (s_dst, m, l, delta) of every (i, h) into one float4, which the
+//   backward kernel then gathers in one 16-byte load. gat_backward_kernel walks
+//   the transposed listing (entries by source j) and, in the same pass, adds
+//   dz, computes dalpha and dpre, and adds ds_src and ds_dst: dalpha costs no
+//   second gather of z or g, since z[j] stays in registers along j's run.
+// - The weighted sums are cut as the COO tail kernel (coo_spmm.cu) cuts its
+//   entries: segments of kSeg entries whatever the rows' lengths, one group of
+//   lanes a segment and head. No group owns a hub row (a row of 17,000 entries is
+//   67 segments), and the grid is set by the entry count. A run of one row inside
+//   a segment is summed in registers and added to out (or dz) with one atomic a
+//   feature; a row that crosses segments is added once by each of them, so the
+//   softmax statistics of a split row are joined by the atomics of the stats
+//   kernel (max, then sum) before any weight is formed.
+// - A group is the narrowest of 8, 16 and 32 lanes whose tile (4 * kQuads floats a
+//   lane) holds one head's C features, so the head is the grid's slowest index
+//   (blockIdx.y) and a group's dalpha is a sum over its own lanes (shuffles, no
+//   atomics). float4 lanes when C % 4 == 0 and z, out, g and dz are 16-byte
+//   aligned; masked scalars otherwise (C = 47, the class count of the last layer).
+// - Each lane of a group loads one entry of the group's next kG, one round ahead,
+//   computes that entry's alpha (and, backward, the other per-entry values) and
+//   hands them to the group by shuffle; every lane requests kBatch rows before it
+//   adds any.
+// - Only the order of the f32 sums differs from the plain version: a run's terms
+//   in entry order, the runs of one row in the order their atomics land.
+// The constants and the design were chosen by timing on the H100
+// (tools/gat_variants.py on the GAT cell's listing; PERF.md): no value of kSeg (128,
+// 512), kBatch (2, 8) or kWarps (8) moved the weighted sum or the backward pass by 1 %;
+// the backward pass split into two launches (dz, then dalpha and the scores'
+// gradients, each gathering g) took 1.77 and 1.69 times as long (C = 128, 47); the
+// scores' values loaded two rounds ahead in place of one changed nothing. The ELL and
+// COO kernels with alpha as their values sum 14-23 % faster than gat_aggregate_kernel,
+// but need alpha laid out in their packs, per-head copies of z and of the output, and
+// give no dalpha.
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kWarps = 4;      // warps of a thread block
+constexpr int kThreads = 32 * kWarps;
+constexpr int kSeg = 256;      // entries of a group's segment
+constexpr int kBatch = 4;      // entries whose rows a lane requests before adding any
+constexpr unsigned kFull = 0xffffffffu;
+static_assert(kSeg % 32 == 0, "a segment is whole loads of a group's entries");
+
+__device__ __forceinline__ float leaky(float p, float slope) { return p > 0.f ? p : slope * p; }
+
+// *addr = max(*addr, v) for floats, by the order of their bits: a value whose sign
+// bit is clear orders as a signed int, one whose sign bit is set in reverse as an
+// unsigned int (-0.0 and -inf included).
+__device__ __forceinline__ void atomic_max_f32(float* addr, float v) {
+  if (__float_as_int(v) >= 0) {
+    atomicMax(reinterpret_cast<int*>(addr), __float_as_int(v));
+  } else {
+    atomicMin(reinterpret_cast<unsigned int*>(addr), __float_as_uint(v));
+  }
+}
+
+// kPhase 0: m[i, h] = max over i's entries of a[e, h] (m holds -inf on entry).
+// kPhase 1: l[i, h] += exp(a[e, h] - m[i, h]) (l holds 0 on entry).
+template <int kPhase>
+__global__ void __launch_bounds__(kThreads)
+gat_stats_kernel(const int32_t* __restrict__ row, const int32_t* __restrict__ col,
+                 const float* __restrict__ s_src, const float* __restrict__ s_dst,
+                 float* __restrict__ m, float* __restrict__ l, int64_t nnz, int heads,
+                 float slope) {
+  const int lane = threadIdx.x & 31;
+  const int64_t e = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
+  if (e - lane >= nnz) return;  // uniform across the warp
+  const bool valid = e < nnz;
+  const int32_t r = valid ? __ldcs(row + e) : -1;
+  const int32_t c = valid ? __ldcs(col + e) : 0;
+  const int32_t r_prev = __shfl_up_sync(kFull, r, 1);
+  const bool first = valid && (lane == 0 || r_prev != r);
+  for (int h = 0; h < heads; ++h) {
+    const int64_t ri = static_cast<int64_t>(r) * heads + h;
+    float v;
+    if (valid) {
+      const float a = leaky(__ldg(s_dst + ri) + __ldg(s_src + static_cast<int64_t>(c) * heads + h),
+                            slope);
+      if constexpr (kPhase == 0) {
+        v = a;
+      } else {
+        v = expf(a - __ldg(m + ri));
+      }
+    } else {
+      v = kPhase == 0 ? __int_as_float(static_cast<int>(0xff800000u)) : 0.f;  // -inf, 0
+    }
+    // lane L gathers the lanes after it that hold its row (a row's lanes are
+    // consecutive), so a run's first lane ends with the run's whole result
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const float v2 = __shfl_down_sync(kFull, v, o);
+      const int32_t r2 = __shfl_down_sync(kFull, r, o);
+      if (lane + o < 32 && r2 == r) {
+        if constexpr (kPhase == 0) {
+          v = fmaxf(v, v2);
+        } else {
+          v += v2;
+        }
+      }
+    }
+    if (first) {
+      if constexpr (kPhase == 0) {
+        atomic_max_f32(m + ri, v);
+      } else {
+        atomicAdd(l + ri, v);
+      }
+    }
+  }
+}
+
+// The lane's floats of one head's tile of row `xr` (a pointer to x[row, h, 0]):
+// features 4 * (kG * p + gl) + q (vector) or gl + kG * k (scalar) of the nf.
+template <int kG, bool kVec, int kQuads>
+__device__ __forceinline__ void load_tile(const float* __restrict__ xr, int gl, int nf,
+                                          bool valid, float (&g)[4 * kQuads]) {
+  if (kVec) {
+#pragma unroll
+    for (int p = 0; p < kQuads; ++p) {
+      const int i = kG * p + gl;
+      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (valid && 4 * i < nf) v = __ldg(reinterpret_cast<const float4*>(xr) + i);
+      g[4 * p] = v.x; g[4 * p + 1] = v.y; g[4 * p + 2] = v.z; g[4 * p + 3] = v.w;
+    }
+  } else {
+#pragma unroll
+    for (int k = 0; k < 4 * kQuads; ++k) {
+      const int i = gl + kG * k;
+      g[k] = (valid && i < nf) ? __ldg(xr + i) : 0.f;
+    }
+  }
+}
+
+// out_row[...] += acc, the lane's share of the tile, by atomics.
+template <int kG, bool kVec, int kQuads>
+__device__ __forceinline__ void add_tile(float* __restrict__ out_row, int gl, int nf,
+                                         const float (&acc)[4 * kQuads]) {
+  if (kVec) {
+#pragma unroll
+    for (int p = 0; p < kQuads; ++p) {
+      const int i = kG * p + gl;
+      if (4 * i < nf) {
+        atomicAdd(reinterpret_cast<float4*>(out_row) + i,
+                  make_float4(acc[4 * p], acc[4 * p + 1], acc[4 * p + 2], acc[4 * p + 3]));
+      }
+    }
+  } else {
+#pragma unroll
+    for (int k = 0; k < 4 * kQuads; ++k) {
+      const int i = gl + kG * k;
+      if (i < nf) atomicAdd(out_row + i, acc[k]);
+    }
+  }
+}
+
+// The segment of a group: its first entry and its length (0 past the last).
+__device__ __forceinline__ int segment_length(int64_t e0, int64_t nnz) {
+  return static_cast<int>(e0 < nnz ? (nnz - e0 < kSeg ? nnz - e0 : kSeg) : 0);
+}
+
+// out[i, h, :] += alpha[e, h] * z[j, h, :] over the entries; out holds 0 on entry.
+// A group of kG lanes sums one segment of kSeg entries for head blockIdx.y.
+template <int kG, bool kVec, int kQuads>
+__global__ void __launch_bounds__(kThreads)
+gat_aggregate_kernel(const int32_t* __restrict__ row, const int32_t* __restrict__ col,
+                     const float* __restrict__ s_src, const float* __restrict__ s_dst,
+                     const float* __restrict__ m, const float* __restrict__ l,
+                     const float* __restrict__ z, float* __restrict__ out, int64_t nnz,
+                     int heads, int c_head, float slope, int64_t segments) {
+  constexpr int kLane = 4 * kQuads;
+  constexpr int kR = 32 / kG;  // groups of a warp
+  const int lane = threadIdx.x & 31;
+  const int gl = lane % kG;
+  const int base = lane - gl;
+  const int h = blockIdx.y;
+  const int64_t seg0 = (static_cast<int64_t>(blockIdx.x) * kWarps + (threadIdx.x >> 5)) * kR;
+  if (seg0 >= segments) return;  // uniform across the warp
+  const int64_t e0 = (seg0 + lane / kG) * kSeg;
+  const int len = segment_length(e0, nnz);
+  const int most = __reduce_max_sync(kFull, len);
+  const int64_t stride = static_cast<int64_t>(heads) * c_head;  // a row of z and out
+  const float* zh = z + static_cast<int64_t>(h) * c_head;
+  float* oh = out + static_cast<int64_t>(h) * c_head;
+
+  float acc[kLane];
+#pragma unroll
+  for (int k = 0; k < kLane; ++k) acc[k] = 0.f;
+  int cur = -1;  // the row of the run being summed
+
+  // this lane's entry of the group's next kG, and its weight, one round ahead
+  int32_t r_next = 0, c_next = 0;
+  float w_next = 0.f;
+  auto fetch = [&](int64_t e) {
+    r_next = __ldcs(row + e);
+    c_next = __ldcs(col + e);
+    const int64_t ri = static_cast<int64_t>(r_next) * heads + h;
+    const float a = leaky(__ldg(s_dst + ri) + __ldg(s_src + static_cast<int64_t>(c_next) * heads + h),
+                          slope);
+    w_next = expf(a - __ldg(m + ri)) / __ldg(l + ri);
+  };
+  if (gl < len) fetch(e0 + gl);
+  for (int c0 = 0; c0 < most; c0 += kG) {
+    const int n = min(kG, len - c0);  // the group's entries this round; <= 0 past its end
+    const int32_t r = r_next, c = c_next;
+    const float w = w_next;
+    if (c0 + kG + gl < len) fetch(e0 + c0 + kG + gl);
+    const int steps = min(kG, most - c0);  // uniform across the warp
+    for (int j0 = 0; j0 < steps; j0 += kBatch) {
+      float g[kBatch][kLane];
+      float wj[kBatch];
+      int32_t rj[kBatch];
+#pragma unroll
+      for (int j = 0; j < kBatch; ++j) {
+        const int src = base + ((j0 + j) & (kG - 1));
+        const int32_t cj = __shfl_sync(kFull, c, src);
+        wj[j] = __shfl_sync(kFull, w, src);
+        rj[j] = __shfl_sync(kFull, r, src);
+        load_tile<kG, kVec, kQuads>(zh + static_cast<int64_t>(cj) * stride, gl, c_head,
+                                    j0 + j < n, g[j]);
+      }
+#pragma unroll
+      for (int j = 0; j < kBatch; ++j) {
+        if (j0 + j < n) {  // uniform across the group
+          if (rj[j] != cur) {
+            if (cur >= 0) {
+              add_tile<kG, kVec, kQuads>(oh + static_cast<int64_t>(cur) * stride, gl, c_head, acc);
+            }
+            cur = rj[j];
+#pragma unroll
+            for (int k = 0; k < kLane; ++k) acc[k] = 0.f;
+          }
+#pragma unroll
+          for (int k = 0; k < kLane; ++k) acc[k] = fmaf(wj[j], g[j][k], acc[k]);
+        }
+      }
+    }
+  }
+  if (cur >= 0) add_tile<kG, kVec, kQuads>(oh + static_cast<int64_t>(cur) * stride, gl, c_head, acc);
+}
+
+// delta[i, h] = <g[i, h, :], out[i, h, :]>; q[i, h] = (s_dst, m, l, delta). One warp
+// a row, the heads in turn.
+__global__ void __launch_bounds__(kThreads)
+gat_rowdot_kernel(const float* __restrict__ g, const float* __restrict__ out,
+                  const float* __restrict__ s_dst, const float* __restrict__ m,
+                  const float* __restrict__ l, float4* __restrict__ q, int64_t n_rows,
+                  int heads, int c_head) {
+  const int lane = threadIdx.x & 31;
+  const int64_t i = static_cast<int64_t>(blockIdx.x) * kWarps + (threadIdx.x >> 5);
+  if (i >= n_rows) return;  // uniform across the warp
+  const int64_t stride = static_cast<int64_t>(heads) * c_head;
+  for (int h = 0; h < heads; ++h) {
+    const float* gr = g + i * stride + static_cast<int64_t>(h) * c_head;
+    const float* orow = out + i * stride + static_cast<int64_t>(h) * c_head;
+    float d = 0.f;
+    for (int k = lane; k < c_head; k += 32) d = fmaf(__ldcs(gr + k), __ldcs(orow + k), d);
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) d += __shfl_xor_sync(kFull, d, o);
+    if (lane == 0) {
+      const int64_t ri = i * heads + h;
+      q[ri] = make_float4(__ldg(s_dst + ri), __ldg(m + ri), __ldg(l + ri), d);
+    }
+  }
+}
+
+// The backward pass over the transposed listing (t_row = source j, t_col =
+// destination i, sorted by j), head blockIdx.y: dz[j] += alpha * g[i],
+// ds_src[j] += dpre, ds_dst[i] += dpre. dz, ds_src and ds_dst hold 0 on entry.
+template <int kG, bool kVec, int kQuads>
+__global__ void __launch_bounds__(kThreads)
+gat_backward_kernel(const int32_t* __restrict__ t_row, const int32_t* __restrict__ t_col,
+                    const float* __restrict__ s_src, const float4* __restrict__ q,
+                    const float* __restrict__ z, const float* __restrict__ g,
+                    float* __restrict__ dz, float* __restrict__ ds_src,
+                    float* __restrict__ ds_dst, int64_t nnz, int heads, int c_head, float slope,
+                    int64_t segments) {
+  constexpr int kLane = 4 * kQuads;
+  constexpr int kR = 32 / kG;
+  const int lane = threadIdx.x & 31;
+  const int gl = lane % kG;
+  const int base = lane - gl;
+  const int h = blockIdx.y;
+  const int64_t seg0 = (static_cast<int64_t>(blockIdx.x) * kWarps + (threadIdx.x >> 5)) * kR;
+  if (seg0 >= segments) return;  // uniform across the warp
+  const int64_t e0 = (seg0 + lane / kG) * kSeg;
+  const int len = segment_length(e0, nnz);
+  const int most = __reduce_max_sync(kFull, len);
+  const int64_t stride = static_cast<int64_t>(heads) * c_head;
+  const float* zh = z + static_cast<int64_t>(h) * c_head;
+  const float* gh = g + static_cast<int64_t>(h) * c_head;
+  float* dzh = dz + static_cast<int64_t>(h) * c_head;
+
+  float acc[kLane];  // the run's dz
+  float zr[kLane];   // the run's z[j, h, :]
+#pragma unroll
+  for (int k = 0; k < kLane; ++k) acc[k] = zr[k] = 0.f;
+  float ds = 0.f;    // the run's ds_src
+  int cur = -1;
+
+  // this lane's entry of the group's next kG: source j, destination i, alpha,
+  // alpha times the LeakyReLU's slope at pre, and delta[i, h]
+  int32_t j_next = 0, i_next = 0;
+  float w_next = 0.f, ws_next = 0.f, d_next = 0.f;
+  auto fetch = [&](int64_t e) {
+    j_next = __ldcs(t_row + e);
+    i_next = __ldcs(t_col + e);
+    const float4 qi = __ldg(q + static_cast<int64_t>(i_next) * heads + h);
+    const float p = qi.x + __ldg(s_src + static_cast<int64_t>(j_next) * heads + h);
+    w_next = expf(leaky(p, slope) - qi.y) / qi.z;
+    ws_next = p > 0.f ? w_next : w_next * slope;
+    d_next = qi.w;
+  };
+  if (gl < len) fetch(e0 + gl);
+  for (int c0 = 0; c0 < most; c0 += kG) {
+    const int n = min(kG, len - c0);
+    const int32_t jr = j_next, ir = i_next;
+    const float w = w_next, ws = ws_next, dl = d_next;
+    if (c0 + kG + gl < len) fetch(e0 + c0 + kG + gl);
+    const int steps = min(kG, most - c0);  // uniform across the warp
+    for (int j0 = 0; j0 < steps; j0 += kBatch) {
+      float gi[kBatch][kLane];
+      float wj[kBatch], wsj[kBatch], dj[kBatch];
+      int32_t rj[kBatch], ij[kBatch];
+#pragma unroll
+      for (int b = 0; b < kBatch; ++b) {
+        const int src = base + ((j0 + b) & (kG - 1));
+        ij[b] = __shfl_sync(kFull, ir, src);
+        rj[b] = __shfl_sync(kFull, jr, src);
+        wj[b] = __shfl_sync(kFull, w, src);
+        wsj[b] = __shfl_sync(kFull, ws, src);
+        dj[b] = __shfl_sync(kFull, dl, src);
+        load_tile<kG, kVec, kQuads>(gh + static_cast<int64_t>(ij[b]) * stride, gl, c_head,
+                                    j0 + b < n, gi[b]);
+      }
+#pragma unroll
+      for (int b = 0; b < kBatch; ++b) {
+        const bool valid = j0 + b < n;  // uniform across the group
+        if (valid && rj[b] != cur) {
+          if (cur >= 0) {
+            add_tile<kG, kVec, kQuads>(dzh + static_cast<int64_t>(cur) * stride, gl, c_head, acc);
+            if (gl == 0) atomicAdd(ds_src + static_cast<int64_t>(cur) * heads + h, ds);
+          }
+          cur = rj[b];
+          load_tile<kG, kVec, kQuads>(zh + static_cast<int64_t>(cur) * stride, gl, c_head, true,
+                                      zr);
+#pragma unroll
+          for (int k = 0; k < kLane; ++k) acc[k] = 0.f;
+          ds = 0.f;
+        }
+        // dalpha = <g[i, h, :], z[j, h, :]>, summed over the group's lanes (every
+        // lane of the warp takes part; a group past its entries sums zeros)
+        float da = 0.f;
+#pragma unroll
+        for (int k = 0; k < kLane; ++k) da = fmaf(gi[b][k], zr[k], da);
+#pragma unroll
+        for (int o = kG / 2; o > 0; o >>= 1) da += __shfl_xor_sync(kFull, da, o);
+        if (valid) {
+          const float dpre = wsj[b] * (da - dj[b]);
+#pragma unroll
+          for (int k = 0; k < kLane; ++k) acc[k] = fmaf(wj[b], gi[b][k], acc[k]);
+          ds += dpre;
+          if (gl == 0) atomicAdd(ds_dst + static_cast<int64_t>(ij[b]) * heads + h, dpre);
+        }
+      }
+    }
+  }
+  if (cur >= 0) {
+    add_tile<kG, kVec, kQuads>(dzh + static_cast<int64_t>(cur) * stride, gl, c_head, acc);
+    if (gl == 0) atomicAdd(ds_src + static_cast<int64_t>(cur) * heads + h, ds);
+  }
+}
+
+// The grid of a segmented kernel: blocks over the segments, the heads on y.
+inline bool segment_grid(int64_t nnz, int kg, int heads, dim3& grid, int64_t& segments) {
+  segments = (nnz + kSeg - 1) / kSeg;
+  const int64_t per_block = static_cast<int64_t>(kWarps) * (32 / kg);
+  const int64_t blocks = (segments + per_block - 1) / per_block;
+  if (blocks > 0x7fffffffLL || heads > 65535) return false;
+  grid = dim3(static_cast<unsigned>(blocks), static_cast<unsigned>(heads));
+  return true;
+}
+
+template <int kG, int kQuads>
+int launch_aggregate(const int32_t* row, const int32_t* col, const float* s_src,
+                     const float* s_dst, const float* m, const float* l, const float* z,
+                     float* out, int64_t nnz, int heads, int c_head, float slope, bool vec4,
+                     cudaStream_t stream) {
+  dim3 grid;
+  int64_t segments;
+  if (!segment_grid(nnz, kG, heads, grid, segments)) {
+    return static_cast<int>(cudaErrorInvalidConfiguration);
+  }
+  if (vec4) {
+    gat_aggregate_kernel<kG, true, kQuads><<<grid, kThreads, 0, stream>>>(
+        row, col, s_src, s_dst, m, l, z, out, nnz, heads, c_head, slope, segments);
+  } else {
+    gat_aggregate_kernel<kG, false, kQuads><<<grid, kThreads, 0, stream>>>(
+        row, col, s_src, s_dst, m, l, z, out, nnz, heads, c_head, slope, segments);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int kG, int kQuads>
+int launch_backward(const int32_t* t_row, const int32_t* t_col, const float* s_src,
+                    const float4* q, const float* z, const float* g, float* dz, float* ds_src,
+                    float* ds_dst, int64_t nnz, int heads, int c_head, float slope, bool vec4,
+                    cudaStream_t stream) {
+  dim3 grid;
+  int64_t segments;
+  if (!segment_grid(nnz, kG, heads, grid, segments)) {
+    return static_cast<int>(cudaErrorInvalidConfiguration);
+  }
+  if (vec4) {
+    gat_backward_kernel<kG, true, kQuads><<<grid, kThreads, 0, stream>>>(
+        t_row, t_col, s_src, q, z, g, dz, ds_src, ds_dst, nnz, heads, c_head, slope, segments);
+  } else {
+    gat_backward_kernel<kG, false, kQuads><<<grid, kThreads, 0, stream>>>(
+        t_row, t_col, s_src, q, z, g, dz, ds_src, ds_dst, nnz, heads, c_head, slope, segments);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// All pointers contiguous on the current device; every index must lie in [0, n).
+// row, col int32 [nnz] sorted by row; s_src, s_dst, m, l f32 [n, heads]; z, out,
+// g, dz f32 [n, heads, c_head]; q float4 [n, heads]. vec4 != 0 asks for the
+// float4 path: the caller guarantees c_head % 4 == 0 and 16-byte aligned z, out
+// (forward), z, g and dz (backward). c_head is at most 512. Each entry launches on
+// `stream` and returns cudaGetLastError() (0 on success); none synchronizes.
+
+// m must hold -inf and l 0: two launches, the maxima then the sums.
+extern "C" int gat_stats_f32(const int32_t* row, const int32_t* col, const float* s_src,
+                             const float* s_dst, float* m, float* l, int64_t nnz, int heads,
+                             float slope, cudaStream_t stream) {
+  if (nnz <= 0 || heads <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  const int64_t blocks = (nnz + kThreads - 1) / kThreads;
+  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidConfiguration);
+  gat_stats_kernel<0><<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(
+      row, col, s_src, s_dst, m, l, nnz, heads, slope);
+  const int err = static_cast<int>(cudaGetLastError());
+  if (err != 0) return err;
+  gat_stats_kernel<1><<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(
+      row, col, s_src, s_dst, m, l, nnz, heads, slope);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// out must hold 0.
+extern "C" int gat_aggregate_f32(const int32_t* row, const int32_t* col, const float* s_src,
+                                 const float* s_dst, const float* m, const float* l,
+                                 const float* z, float* out, int64_t nnz, int heads,
+                                 int c_head, float slope, int vec4, cudaStream_t stream) {
+  if (nnz <= 0 || heads <= 0 || c_head <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  const bool v = vec4 != 0;
+  if (c_head <= 32) return launch_aggregate<8, 1>(row, col, s_src, s_dst, m, l, z, out, nnz, heads, c_head, slope, v, stream);
+  if (c_head <= 64) return launch_aggregate<16, 1>(row, col, s_src, s_dst, m, l, z, out, nnz, heads, c_head, slope, v, stream);
+  if (c_head <= 128) return launch_aggregate<32, 1>(row, col, s_src, s_dst, m, l, z, out, nnz, heads, c_head, slope, v, stream);
+  if (c_head <= 256) return launch_aggregate<32, 2>(row, col, s_src, s_dst, m, l, z, out, nnz, heads, c_head, slope, v, stream);
+  if (c_head <= 512) return launch_aggregate<32, 4>(row, col, s_src, s_dst, m, l, z, out, nnz, heads, c_head, slope, v, stream);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+extern "C" int gat_rowdot_f32(const float* g, const float* out, const float* s_dst,
+                              const float* m, const float* l, float4* q, int64_t n_rows,
+                              int heads, int c_head, cudaStream_t stream) {
+  if (n_rows <= 0 || heads <= 0 || c_head <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  const int64_t blocks = (n_rows + kWarps - 1) / kWarps;
+  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidConfiguration);
+  gat_rowdot_kernel<<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(
+      g, out, s_dst, m, l, q, n_rows, heads, c_head);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// t_row, t_col: the transposed listing, sorted by t_row; dz, ds_src and ds_dst must
+// hold 0.
+extern "C" int gat_backward_f32(const int32_t* t_row, const int32_t* t_col, const float* s_src,
+                                const float4* q, const float* z, const float* g, float* dz,
+                                float* ds_src, float* ds_dst, int64_t nnz, int heads,
+                                int c_head, float slope, int vec4, cudaStream_t stream) {
+  if (nnz <= 0 || heads <= 0 || c_head <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  const bool v = vec4 != 0;
+  if (c_head <= 32) return launch_backward<8, 1>(t_row, t_col, s_src, q, z, g, dz, ds_src, ds_dst, nnz, heads, c_head, slope, v, stream);
+  if (c_head <= 64) return launch_backward<16, 1>(t_row, t_col, s_src, q, z, g, dz, ds_src, ds_dst, nnz, heads, c_head, slope, v, stream);
+  if (c_head <= 128) return launch_backward<32, 1>(t_row, t_col, s_src, q, z, g, dz, ds_src, ds_dst, nnz, heads, c_head, slope, v, stream);
+  if (c_head <= 256) return launch_backward<32, 2>(t_row, t_col, s_src, q, z, g, dz, ds_src, ds_dst, nnz, heads, c_head, slope, v, stream);
+  if (c_head <= 512) return launch_backward<32, 4>(t_row, t_col, s_src, q, z, g, dz, ds_src, ds_dst, nnz, heads, c_head, slope, v, stream);
+  return static_cast<int>(cudaErrorInvalidValue);
+}

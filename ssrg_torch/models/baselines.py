@@ -10,12 +10,21 @@ graph product:
   ``D^-1 A`` is not symmetric, so its backward has a pack of its own).
 - GAT scores every edge of an :class:`EdgeList` and takes a per-destination
   softmax with segment ops (``scatter_reduce``, ``index_add``): plain tensor
-  code, as it is XLA in the reference.
+  code, as it is XLA in the reference. Over an attention listing
+  (:meth:`EdgeList.attention`) each layer's attention is instead
+  :func:`ssrg_torch.ops.gat_attention.gat_attention`: the hand-written CUDA
+  kernels on a card (no per-edge message is held), their plain versions on
+  the CPU. ``BaselineGAT(published=True)`` is PyG's ``GATConv`` as
+  ``examples/ogbn_products_gat.py`` stacks it: a bias after the
+  aggregation, a skip ``Linear`` added to each layer, self-loops in the
+  listing, attention dropout of its own; without it, the reference's form.
 
 Submodule and parameter names are the flax names (``lin_{i}``, ``bn_{i}``,
 ``lin_out``, ``conv_{i}``, ``conv_out``, ``self_{i}``, ``nbr_{i}``,
 ``w_{i}``, ``a_src_{i}``, ``a_dst_{i}``, ``lin``, ``hop_{k}``, ``out``), so
-that :mod:`ssrg_torch.convert` carries the reference's parameters over.
+that :mod:`ssrg_torch.convert` carries the reference's parameters over; the
+published GAT form adds ``bias_{i}`` and ``skip_{i}``, which the reference
+has not.
 flax infers input widths at the first call; these modules take them at
 construction. Dropout draws from the generator that
 :func:`ssrg_torch.models.heads.bind_generator` binds, BatchNorm has flax's
@@ -34,6 +43,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ssrg_torch.models.heads import BatchNorm, Dropout
+from ssrg_torch.ops.gat_attention import gat_attention
 from ssrg_torch.ops.sddmm import edge_softmax
 from ssrg_torch.utils import DeviceLike, init_dense_, resolve_device, variance_scaling_
 
@@ -44,12 +54,30 @@ class EdgeList:
     destination, ``col`` the source, ``mask`` 1 on real edges and 0 on the
     padding that rounds the length up to a multiple of ``pad_to`` (padding
     entries point at node 0). The padding keeps the packs equal entry for
-    entry to the reference's; it costs the port nothing else."""
+    entry to the reference's; it costs the port nothing else.
 
-    row: torch.Tensor   # int32 [E_pad] destination
-    col: torch.Tensor   # int32 [E_pad] source
-    mask: torch.Tensor  # f32 [E_pad]
+    An attention listing (:meth:`attention`) is the structure the attention
+    kernels of :mod:`ssrg_torch.ops.gat_attention` consume: every entry once,
+    one self-loop a node in place of the diagonal, no padding (``mask`` None, ``nnz`` the
+    entry count), sorted by ``row`` then ``col``, and beside it the
+    transposed listing ``t_row`` (source), ``t_col`` (destination) sorted by
+    source, which the backward pass walks; for a symmetric structure the
+    two listings are the same tensors."""
+
+    row: torch.Tensor             # int32 [E_pad] destination
+    col: torch.Tensor             # int32 [E_pad] source
+    mask: Optional[torch.Tensor]  # f32 [E_pad]; None: every entry is real
     num_nodes: int
+    nnz: Optional[int] = None     # the real entries of an attention listing
+    t_row: Optional[torch.Tensor] = None  # int32 [nnz] source, sorted
+    t_col: Optional[torch.Tensor] = None  # int32 [nnz] destination
+
+    @property
+    def weights_mask(self) -> torch.Tensor:
+        """``mask``, or ones where every entry is real."""
+        if self.mask is not None:
+            return self.mask
+        return torch.ones(self.row.shape, dtype=torch.float32, device=self.row.device)
 
     @classmethod
     def from_scipy(cls, adj: sp.spmatrix, pad_to: int = 512,
@@ -71,10 +99,42 @@ class EdgeList:
         return cls(torch.from_numpy(row), torch.from_numpy(col), torch.from_numpy(mask),
                    adj.shape[0])
 
+    @classmethod
+    def attention(cls, adj: sp.spmatrix) -> "EdgeList":
+        """The attention listing of ``adj``'s stored entries, on the host:
+        every diagonal entry dropped and one self-loop added a node (PyG's
+        ``add_self_loops``)."""
+        coo = adj.tocoo()
+        n, m = adj.shape
+        if n != m:
+            raise ValueError(f"self-loops need a square adjacency, got {adj.shape}")
+        keep = coo.row != coo.col
+        loops = np.arange(n)
+        r = np.concatenate([coo.row[keep], loops])
+        c = np.concatenate([coo.col[keep], loops])
+        csr = sp.csr_matrix((np.ones(r.shape[0], np.float32), (r, c)), shape=(n, m))
+        csr.sum_duplicates()
+        row = torch.from_numpy(np.repeat(np.arange(n, dtype=np.int32), np.diff(csr.indptr)))
+        col = torch.from_numpy(csr.indices.astype(np.int32))
+        t = csr.T.tocsr()
+        t.sum_duplicates()
+        if np.array_equal(t.indptr, csr.indptr) and np.array_equal(t.indices, csr.indices):
+            t_row, t_col = row, col
+        else:
+            t_row = torch.from_numpy(np.repeat(np.arange(m, dtype=np.int32), np.diff(t.indptr)))
+            t_col = torch.from_numpy(t.indices.astype(np.int32))
+        return cls(row, col, None, n, int(csr.nnz), t_row, t_col)
+
     def to(self, device: DeviceLike) -> "EdgeList":
         dev = resolve_device(device)
-        return replace(self, row=self.row.to(dev), col=self.col.to(dev),
-                       mask=self.mask.to(dev))
+        row, col = self.row.to(dev), self.col.to(dev)
+        t_row, t_col = self.t_row, self.t_col
+        if t_row is self.row and t_col is self.col:
+            t_row, t_col = row, col
+        elif t_row is not None:
+            t_row, t_col = t_row.to(dev), t_col.to(dev)
+        return replace(self, row=row, col=col, t_row=t_row, t_col=t_col,
+                       mask=None if self.mask is None else self.mask.to(dev))
 
 
 class BaselineMLP(nn.Module):
@@ -196,21 +256,48 @@ class BaselineSAGE(nn.Module):
 class BaselineGAT(nn.Module):
     """GAT: ``heads``-head attention layers over an :class:`EdgeList`,
     heads concatenated between layers and averaged at the output layer.
-    ``hidden_dim`` is the width of one head."""
+    ``hidden_dim`` is the width of one head.
+
+    The reference's form (the default): ``z = w_i(x)``, the attention's
+    weighted sum of ``z``, ELU and dropout between layers, the weights of
+    the attention dropped at the feature rate (``attn_dropout`` None). The
+    ``published`` form, PyG's ``GATConv`` stack in ``ogbn_products_gat.py``,
+    adds a bias (``bias_{i}``, after the concatenation or the mean) and a
+    skip ``Linear`` (``skip_{i}``) of the layer's input added to its output
+    before ELU, and drops the weights at ``attn_dropout`` (None: 0, no draw
+    made); its self-loops are in the listing (:meth:`EdgeList.attention`).
+
+    Over an attention listing a layer runs
+    :func:`ssrg_torch.ops.gat_attention.gat_attention`, the kernels on a
+    card, which have no dropout of the weights: a card's tensors in
+    training with ``attn_dropout`` above 0 raise ``ValueError``, and only
+    the CPU takes the plain path there. The reference's padded list always
+    takes the plain path."""
 
     def __init__(self, feat_dim: int, hidden_dim: int, output_dim: int,
                  num_layers: int = 2, heads: int = 8, dropout: float = 0.5,
-                 negative_slope: float = 0.2):
+                 negative_slope: float = 0.2, published: bool = False,
+                 attn_dropout: Optional[float] = None):
         super().__init__()
         self.num_layers, self.heads, self.negative_slope = num_layers, heads, negative_slope
+        self.published = published
         self.dims = [hidden_dim] * (num_layers - 1) + [output_dim]
         in_dim = feat_dim
         for i, d in enumerate(self.dims):
+            last = i == num_layers - 1
             self.add_module(f"w_{i}", nn.Linear(in_dim, heads * d, bias=False))
             self.register_parameter(f"a_src_{i}", nn.Parameter(torch.empty(1, heads, d)))
             self.register_parameter(f"a_dst_{i}", nn.Parameter(torch.empty(1, heads, d)))
+            if published:
+                width = d if last else heads * d
+                self.register_parameter(f"bias_{i}", nn.Parameter(torch.empty(width)))
+                self.add_module(f"skip_{i}", nn.Linear(in_dim, width))
             in_dim = heads * d
         self.dropout = Dropout(dropout)
+        if attn_dropout is None:
+            self.attn_dropout = Dropout(0.0) if published else self.dropout
+        else:
+            self.attn_dropout = Dropout(attn_dropout)
         self.reset_parameters()
 
     def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
@@ -220,24 +307,46 @@ class BaselineGAT(nn.Module):
                 # flax's xavier_uniform on (1, H, D): fan_in H, fan_out D
                 variance_scaling_(getattr(self, name), 1.0, "fan_avg", "uniform",
                                   fan_in=self.heads, fan_out=d, generator=generator)
+            if self.published:
+                nn.init.zeros_(getattr(self, f"bias_{i}"))
+                init_dense_(getattr(self, f"skip_{i}"), generator=generator)
+
+    def _fused(self, x, edges: EdgeList) -> bool:
+        """Whether the layers run the fused attention: over an attention
+        listing with no dropout of the weights (evaluation, or a rate of 0),
+        and on a card always."""
+        if edges.t_row is None:
+            return False
+        if not (self.training and self.attn_dropout.rate > 0):
+            return True
+        if x.device.type == "cuda":
+            raise ValueError(f"BaselineGAT: the attention kernels drop no weights; attention "
+                             f"dropout {self.attn_dropout.rate} trains only on the CPU")
+        return False
 
     def forward(self, x, edges: EdgeList):
         h, n = self.heads, edges.num_nodes
+        fused = self._fused(x, edges)
         row, col = edges.row.long(), edges.col.long()
         for i, d in enumerate(self.dims):
             last = i == self.num_layers - 1
+            x_in = x
             z = getattr(self, f"w_{i}")(x).view(n, h, d)
             score_src = (z * getattr(self, f"a_src_{i}")).sum(-1)   # [N, H]
             score_dst = (z * getattr(self, f"a_dst_{i}")).sum(-1)
-            e = F.leaky_relu(score_dst.index_select(0, row) + score_src.index_select(0, col),
-                             self.negative_slope)
-            alpha = self.dropout(edge_softmax(e, row, edges.mask, n))  # [E, H]
-            msgs = z.index_select(0, col) * alpha[..., None]            # [E, H, D]
-            out = z.new_zeros((n, h, d)).index_add(0, row, msgs)
-            if last:
-                x = out.mean(dim=1)
+            if fused:
+                out = gat_attention(z, score_src, score_dst, edges, self.negative_slope)
             else:
-                x = self.dropout(F.elu(out.reshape(n, h * d)))
+                e = F.leaky_relu(score_dst.index_select(0, row) + score_src.index_select(0, col),
+                                 self.negative_slope)
+                alpha = self.attn_dropout(edge_softmax(e, row, edges.weights_mask, n))  # [E, H]
+                msgs = z.index_select(0, col) * alpha[..., None]                        # [E, H, D]
+                out = z.new_zeros((n, h, d)).index_add(0, row, msgs)
+            x = out.mean(dim=1) if last else out.reshape(n, h * d)
+            if self.published:
+                x = x + getattr(self, f"bias_{i}") + getattr(self, f"skip_{i}")(x_in)
+            if not last:
+                x = self.dropout(F.elu(x))
         return x
 
 

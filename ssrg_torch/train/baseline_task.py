@@ -104,16 +104,27 @@ def cluster_groups(adj: sp.spmatrix, num_parts: int, parts_per_batch: int,
             for b in range(0, num_parts, parts_per_batch)]
 
 
+def gat_edges(adj: sp.spmatrix, published: bool = False) -> EdgeList:
+    """The :class:`EdgeList` a GAT consumes, on the host: the reference's
+    padded list of ``adj``'s entries, or for the ``published`` form the
+    attention listing with its self-loops that the fused kernels consume
+    (:meth:`EdgeList.attention`)."""
+    if published:
+        return EdgeList.attention(adj)
+    return EdgeList.from_scipy(adj)
+
+
 def build_cluster_batches(
     adj: sp.spmatrix, num_parts: int, parts_per_batch: int,
     engine: str = "auto", seed: int = 0, model_kind: str = "gcn",
-    device: DeviceLike = "cuda",
+    device: DeviceLike = "cuda", published: bool = False,
 ) -> List[ClusterBatch]:
     """One batch per group of :func:`cluster_groups`, with the induced
     subgraph in the form ``model_kind`` consumes: ``gcn`` the symmetric-norm
     sub-adjacency, ``sage`` the row-mean one (both on
     ``differentiable_adjacency``), ``gat`` the subgraph's own
-    :class:`EdgeList`. No padding: each batch holds its group's nodes and
+    :class:`EdgeList` (:func:`gat_edges` of the ``published`` form or the
+    reference's). No padding: each batch holds its group's nodes and
     edges once."""
     dev = resolve_device(device)
     csr = adj.tocsr()
@@ -122,7 +133,7 @@ def build_cluster_batches(
     for g in cluster_groups(csr, num_parts, parts_per_batch, seed):
         sub = csr[g][:, g]
         if model_kind == "gat":
-            sub_dev = EdgeList.from_scipy(sub).to(dev)
+            sub_dev = gat_edges(sub, published).to(dev)
         else:
             sub_dev = differentiable_adjacency(norm(sub), engine, device=dev)
         batches.append(ClusterBatch(torch.as_tensor(g, dtype=torch.int64, device=dev),
@@ -151,7 +162,16 @@ class BaselineTask:
     After a run, ``state`` holds the train state and ``history`` the last
     run's per-epoch ``loss``, ``train_acc``, ``val_acc`` and ``test_acc``;
     ``prepare_seconds`` is the time the constructor took to pack and
-    propagate: its span ``prepare``."""
+    propagate: its span ``prepare``.
+
+    GAT takes ``heads`` (8 by default, the reference's), ``published``
+    (PyG's ``GATConv`` form, see ``models/baselines.py::BaselineGAT``: skip
+    linears and a bias after the aggregation, over the attention listing
+    with self-loops that the fused kernels consume; without it the
+    reference's form over its padded list) and ``attn_dropout``, the rate
+    the attention's weights are dropped at (None: the form's own, the
+    feature rate in the reference's, 0 in the published one). Its edges
+    are built in the span ``prepare.edges``."""
 
     MODELS = ("mlp", "robust_mlp", "gcn", "sage", "gat", "sgc", "sign")
 
@@ -171,6 +191,9 @@ class BaselineTask:
         verbose: bool = False,
         run: bool = True,
         device: DeviceLike = "cuda",
+        heads: int = 8,
+        published: bool = False,
+        attn_dropout: Optional[float] = None,
     ):
         if model_name not in self.MODELS:
             raise ValueError(f"unknown baseline {model_name!r}; available: {self.MODELS}")
@@ -216,8 +239,13 @@ class BaselineTask:
                 cls = BaselineGCN if model_name == "gcn" else BaselineSAGE
                 self.module = cls(f, hidden_dim, c, num_layers, dropout)
             elif model_name == "gat":
-                self.adj_op = EdgeList.from_scipy(dataset.adj).to(dev)
-                self.module = BaselineGAT(f, hidden_dim, c, num_layers, dropout=dropout)
+                adj = dataset.adj
+                with span("prepare.edges"):
+                    edges = gat_edges(adj, published)
+                self.adj_op = edges.to(dev)
+                self.module = BaselineGAT(f, hidden_dim, c, num_layers, heads=heads,
+                                          dropout=dropout, published=published,
+                                          attn_dropout=attn_dropout)
             elif model_name in ("sgc", "sign"):
                 adj = dataset.adj
                 with span("prepare.normalize"):
@@ -240,7 +268,7 @@ class BaselineTask:
             if cluster_parts is not None:
                 self.cluster_batches = build_cluster_batches(
                     dataset.adj, cluster_parts, parts_per_batch, engine, cfg.seed,
-                    model_kind=model_name, device=dev)
+                    model_kind=model_name, device=dev, published=published)
                 self.train_mask = torch.zeros(dataset.num_node, dtype=torch.float32, device=dev)
                 self.train_mask[self.idx["train"]] = 1.0
             synchronize(dev)
