@@ -17,10 +17,11 @@ Phases, each printing JSON lines:
               power-law pack, the headline pack folded onto an x that fits
               in L2, and ragged packs; times from CUDA events for the
               kernel, the plain version and one PyTorch library call. The
-              GAT attention kernels (``gat_case``) on the power-law graph's
-              attention listing at 4 heads of 128 and of 47 (the GAT cell's
-              widths): each step held to its plain version within its
-              sum-order bound and timed beside it and its bound.
+              GAT attention and score kernels (``gat_case``) on the
+              power-law graph's attention listing at 4 heads of 128 and of
+              47 (the GAT cell's widths): each step held to its plain
+              version within its sum-order bound and timed beside it and
+              its bound.
 3. slice    — the serving path at full width: GAMLP (hidden 256, 3 layers,
               K = 3, 40 classes) on a 169,343-node, F = 128 random graph,
               through ``Predictor`` with ``engine="auto"`` (hybrid), random
@@ -87,13 +88,15 @@ Phases, each printing JSON lines:
               ``train`` graph: GCN and SAGE (3 layers x 256; the ELL kernel
               forward and, on the pack of A^T, backward: 9 and 8 launches an
               epoch, the first layer's gradient within its first-order
-              bound), GAT (2 layers, 8 heads of 64; held to a float64 dense
-              oracle on a 2,000-node subgraph), MLP, robust MLP with the
+              bound), GAT (2 layers, 8 heads of 64, the score kernels and
+              none of the attention's; held to a float64 dense oracle on a
+              2,000-node subgraph), MLP, robust MLP with the
               triplet term, SGC and SIGN (K = 3 on the kernel in
               ``prepare``); the published GAT (3 layers, 4 heads of 128,
               skip linears, bias, self-loops) on the attention kernels, 12,
               6, 3 and 3 launches an epoch of the statistics, weighted sum,
-              row dot and backward kernels; then the GCN on 128 cluster
+              row dot and backward kernels, and 6, 3 and 3 of the scores,
+              their gradient and its sum; then the GCN on 128 cluster
               parts, 8 a batch.
               Each: ``prepare`` seconds, epoch and evaluation times, peak
               device memory, launches checked, best val >= 0.25. SAGE's
@@ -514,13 +517,14 @@ GAT_SLOPE = 0.2
 
 
 def gat_case(name: str, edges, h: int, c: int, gen) -> dict:
-    """The four attention kernels of ``ops/gat_attention.py`` on the
-    attention listing ``edges`` at ``h`` heads of ``c``, random z, scores
-    and output gradient: each step's kernel held to its plain version on
-    the same card tensors (the same inputs, so only the order of the f32
-    sums and the exponent's rounding differ), timed beside it against its
-    bound: the listing, every ``[N, H]`` and ``[N, H, C]`` operand and
-    result moved once over 3.35 TB/s. Returns each kernel's record.
+    """The four attention kernels of ``ops/gat_attention.py`` and the two
+    score kernels on the attention listing ``edges`` at ``h`` heads of
+    ``c``, random z, scores, weights and gradients: each step's kernel held
+    to its plain version on the same card tensors (the same inputs, so only
+    the order of the f32 sums and the exponent's rounding differ), timed
+    beside it against its bound: the listing, every ``[N, H]``, ``[H, C]``
+    and ``[N, H, C]`` operand and result moved once over 3.35 TB/s. Returns
+    each kernel's record (the score gradient's covers its two launches).
 
     Bounds, elementwise, k a node's entries (the listing is symmetric) and
     T = 16 + 2 max|a - m| in units of u = 2^-24 for one alpha or exponent
@@ -530,7 +534,11 @@ def gat_case(name: str, edges, h: int, c: int, gen) -> dict:
     dot ``2 (c + 1) u sum |g out|``; dz ``(2k + T) u sum alpha |g|``; both
     scores' gradients ``(2 (c + k) + T + 6) u M``, M the sum of ``alpha
     (sum |g z| + |delta|) leaky'``, which the plain backward pass gives on
-    the operands' absolute values."""
+    the operands' absolute values. The scores ``2 (c + 1) u sum |z a|``; their
+    ``dz`` ``4 u (|ds_src a_src| + |ds_dst a_dst|)``; ``da`` against the plain
+    version in float64, ``(ceil(n / 4S) + 5 + P) u sum |ds z|`` (S the SMs, P
+    the partial rows, at least the kernel's blocks, each of 4 warps: a lane's
+    rows in order, then its block's warps, then the blocks)."""
     import torch
 
     from ssrg_torch.ops import gat_attention as ga
@@ -575,9 +583,38 @@ def gat_case(name: str, edges, h: int, c: int, gen) -> dict:
         hold(f"{name} backward {what}", got, want, tol.float() + 1e-30)
         for what, got, want, tol in zip(("dz", "ds_src", "ds_dst"), grads_k, grads, tols))
     del grads_k, grads, mags, tols, q_abs
+    a_src = torch.randn((1, h, c), generator=gen).to(dev)
+    a_dst = torch.randn((1, h, c), generator=gen).to(dev)
+    s_k = ga.scores(z, a_src, a_dst)
+    s_p = ga.scores_plain(z, a_src, a_dst)
+    err["gat_scores_kernel"] = max(
+        hold(f"{name} scores", got, want, 2 * (c + 1) * u * (z.abs() * a.abs()).sum(-1) + 1e-30)
+        for got, want, a in zip(s_k, s_p, (a_src, a_dst)))
+    del s_k, s_p
+    ds_src, ds_dst = s_src, s_dst  # any [N, H] values will do
+    grads_k = ga.score_grad(z, a_src, a_dst, ds_src, ds_dst)
+    dz_p = ga.score_grad_plain(z, a_src, a_dst, ds_src, ds_dst)[0]
+    f64 = [t.double() for t in (z, a_src, a_dst, ds_src, ds_dst)]
+    das = ga.score_grad_plain(*f64)[1:]
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    depth = -(-n // (4 * sms)) + 5 + ga._score_part_rows(dev)
+    da_tols = [depth * u * (ds[..., None].abs() * f64[0].abs()).sum(0).view_as(a) + 1e-30
+               for ds, a in ((f64[3], a_src), (f64[4], a_dst))]
+    err["gat_score_grad_kernel"] = max(
+        hold(f"{name} score dz", grads_k[0], dz_p,
+             4 * u * (ds_src[..., None].abs() * a_src.abs()
+                      + ds_dst[..., None].abs() * a_dst.abs()) + 1e-30),
+        *(hold(f"{name} score {what}", got.double(), want, tol)
+          for what, got, want, tol in zip(("da_src", "da_dst"), grads_k[1:], das, da_tols)))
+    again = ga.score_grad(z, a_src, a_dst, ds_src, ds_dst)
+    check(all(torch.equal(a, b) for a, b in zip(grads_k, again)),
+          f"{name}: the score gradient's bits differ between two runs")
+    del grads_k, again, dz_p, f64, das, da_tols
     launched = {kk: v - before[kk] for kk, v in ga.gat_attention.kernel_launches.items()}
     check(launched == {"gat_stats_kernel": 2, "gat_aggregate_kernel": 1,
-                       "gat_rowdot_kernel": 1, "gat_backward_kernel": 1},
+                       "gat_rowdot_kernel": 1, "gat_backward_kernel": 1,
+                       "gat_scores_kernel": 1, "gat_score_grad_kernel": 2,
+                       "gat_score_sum_kernel": 2},
           f"{name}: the steps launched {launched}")
     f32, nh, nhc = 4, n * h, n * h * c
     timed = {  # kernel: (step, its plain version, compulsory bytes, operations)
@@ -597,6 +634,14 @@ def gat_case(name: str, edges, h: int, c: int, gen) -> dict:
             lambda: ga.backward(t_row, t_col, q, s_src, z, g, e, GAT_SLOPE),
             lambda: ga.backward_plain(t_row, t_col, q, s_src, z, g, e, GAT_SLOPE),
             f32 * (2 * e + 3 * nhc + 7 * nh), 4.0 * e * h * c),
+        "gat_scores_kernel": (
+            lambda: ga.scores(z, a_src, a_dst),
+            lambda: ga.scores_plain(z, a_src, a_dst),
+            f32 * (nhc + 2 * h * c + 2 * nh), 4.0 * nhc),
+        "gat_score_grad_kernel": (  # both launches: the gradient, the sum of da
+            lambda: ga.score_grad(z, a_src, a_dst, ds_src, ds_dst),
+            lambda: ga.score_grad_plain(z, a_src, a_dst, ds_src, ds_dst),
+            f32 * (2 * nhc + 2 * nh + 4 * h * c), 8.0 * nhc),
     }
     recs = {}
     for kernel, (step, plain, nbytes, flops) in timed.items():
@@ -2868,7 +2913,11 @@ def baseline_gradient_check(name: str, task, adj_norm) -> dict:
 # (the statistics twice, the weighted sum once), 3 backward (row dot, pass)
 GAT_PUBLISHED = dict(hidden_dim=128, num_layers=3, heads=4, published=True)
 GAT_EPOCH_LAUNCHES = {"gat_stats_kernel": 12, "gat_aggregate_kernel": 6,
-                      "gat_rowdot_kernel": 3, "gat_backward_kernel": 3}
+                      "gat_rowdot_kernel": 3, "gat_backward_kernel": 3,
+                      # the scores: each layer's forward, and backward (the
+                      # gradient, then the sum of da)
+                      "gat_scores_kernel": 6, "gat_score_grad_kernel": 3,
+                      "gat_score_sum_kernel": 3}
 
 
 def gat_published_run(ds, tc) -> dict:
@@ -2993,9 +3042,15 @@ def phase_baseline(graph: dict = None) -> dict:
                 cases[case].update(phase="baseline", pack_reused_as_transpose=False)
                 emit(cases[case])
         if name == "gat":
-            check(all(not any(d.values()) for d in rec.pop("train_epoch_attention")
-                      + rec.pop("eval_attention")),
-                  "gat: the reference's form launched the attention kernels")
+            # the reference's form: the score kernels, none of the attention's
+            layers = kw["num_layers"]
+            scores = {"gat_scores_kernel": 2 * layers, "gat_score_grad_kernel": layers,
+                      "gat_score_sum_kernel": layers}
+            epochs = [{k: t[k] + v[k] for k in t if t[k] + v[k]}
+                      for t, v in zip(rec.pop("train_epoch_attention"),
+                                      rec.pop("eval_attention"))]
+            check(epochs == [scores] * rec["epochs"],
+                  f"gat: the reference's form launched {epochs}, expected {scores} an epoch")
             rec.update(gat_oracle_check(task, ds))
         emit(rec)
         launches[f"baseline_{name}"] = rec["launches"]["ell_spmm"]

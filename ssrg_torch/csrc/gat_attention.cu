@@ -77,6 +77,37 @@
 // COO kernels with alpha as their values sum 14-23 % faster than gat_aggregate_kernel,
 // but need alpha laid out in their packs, per-head copies of z and of the output, and
 // give no dalpha.
+//
+// The scores and their gradient, a_src and a_dst = [H, C] (the layer's weights):
+//
+//   s_src[n, h] = <z[n, h, :], a_src[h, :]>,   s_dst[n, h] = <z[n, h, :], a_dst[h, :]>
+//   dz[n, h, :] = ds_src[n, h] * a_src[h, :] + ds_dst[n, h] * a_dst[h, :]
+//   da_src[h, :] = sum over n of ds_src[n, h] * z[n, h, :],  da_dst likewise
+//
+// They replace no TPU kernel: XLA fuses the reference's (z * a).sum(-1)
+// (ssrg_tpu/models/baselines.py:194-195). In eager PyTorch each score is a
+// broadcast product written out as [N, H, C] and a sum that reads it back, and
+// autograd's backward adds four more products, two sums over N and an add into
+// dz: about 30 GB a forward and 70 GB a backward pass at N = 2,449,029, H = 4,
+// C = 128, where the compulsory bytes are one read of z (5.0 GB) forward and a
+// read of z and a write of dz backward. Both kernels are bound by those bytes.
+// - One warp a row of z, the warps striding over the rows; a row's H * C floats
+//   are read once, float4 lanes where the row and the chunk are whole float4s
+//   (also at C = 47: a head's boundary falls inside a lane's float4, and each of
+//   its floats carries the index of its head), with evict-first loads and stores.
+//   A warp takes a chunk of at most 512 floats and 32 whole heads (blockIdx.y
+//   picks the chunk of a row longer than that); which head each of its lane's
+//   floats belongs to, and the weights a_src and a_dst there, are the same for
+//   every row, so the lane loads them once. A head's dot product is the lane's
+//   share summed by shuffles; lane h writes head h. The grid holds as many
+//   blocks as the device keeps resident (at C = 47, 4 blocks an SM took 1.74 ms
+//   a forward pass and 8 took 1.12 on the cell's z; PERF.md).
+// - Backward, lane h holds the row's ds_src and ds_dst of head h and hands them
+//   to the floats of that head by shuffle; dz is written once (autograd adds it
+//   to the attention's dz). da is summed without atomics, so two runs give the
+//   same bits: each lane keeps its floats' sums over its warp's rows, a block
+//   sums its warps' in warp order into its own partial row, and
+//   gat_score_sum_kernel sums the blocks' partial rows in block order.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -468,6 +499,294 @@ int launch_backward(const int32_t* t_row, const int32_t* t_col, const float* s_s
   return static_cast<int>(cudaGetLastError());
 }
 
+// -- the scores ------------------------------------------------------------
+
+constexpr int kChunk = 512;  // floats of a warp's chunk of a row (16 a lane)
+
+// Heads of a chunk: as many whole heads as kChunk floats and 32 lanes hold.
+inline int chunk_heads(int heads, int c_head) {
+  const int hp = kChunk / c_head < 32 ? kChunk / c_head : 32;
+  return hp < heads ? hp : heads;
+}
+
+// Element j of a lane's kE in a chunk: float4 j / 4 of the lane is the chunk's
+// float4 32 (j / 4) + lane (vector layout), or element lane + 32 j (scalar).
+template <bool kVec>
+__device__ __forceinline__ int chunk_index(int lane, int j) {
+  return kVec ? 4 * (32 * (j >> 2) + lane) + (j & 3) : lane + 32 * j;
+}
+
+// The lane's elements of the chunk at x, 0 past its len floats.
+template <int kE, bool kVec>
+__device__ __forceinline__ void load_chunk(const float* __restrict__ x, int lane, int len,
+                                           float (&v)[kE]) {
+  if (kVec) {
+#pragma unroll
+    for (int p = 0; p < kE / 4; ++p) {
+      const int i = 32 * p + lane;
+      float4 t = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (4 * i < len) t = __ldcs(reinterpret_cast<const float4*>(x) + i);
+      v[4 * p] = t.x; v[4 * p + 1] = t.y; v[4 * p + 2] = t.z; v[4 * p + 3] = t.w;
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < kE; ++j) {
+      const int k = lane + 32 * j;
+      v[j] = k < len ? __ldcs(x + k) : 0.f;
+    }
+  }
+}
+
+template <int kE, bool kVec>
+__device__ __forceinline__ void store_chunk(float* __restrict__ x, int lane, int len,
+                                            const float (&v)[kE]) {
+  if (kVec) {
+#pragma unroll
+    for (int p = 0; p < kE / 4; ++p) {
+      const int i = 32 * p + lane;
+      if (4 * i < len) {
+        __stcs(reinterpret_cast<float4*>(x) + i,
+               make_float4(v[4 * p], v[4 * p + 1], v[4 * p + 2], v[4 * p + 3]));
+      }
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < kE; ++j) {
+      const int k = lane + 32 * j;
+      if (k < len) __stcs(x + k, v[j]);
+    }
+  }
+}
+
+// The warp's chunk, heads [h0, h0 + hc) of every row: its floats' heads in the
+// chunk (-1 past its end) and weights (0 past its end) for this lane.
+struct Chunk {
+  int h0, hc, len;
+  int64_t stride, off;  // floats of a row; the chunk's first float in a row
+};
+
+__device__ __forceinline__ Chunk chunk_of(int heads, int c_head, int chunk_heads) {
+  Chunk ch;
+  ch.h0 = blockIdx.y * chunk_heads;
+  ch.hc = min(chunk_heads, heads - ch.h0);
+  ch.len = ch.hc * c_head;
+  ch.stride = static_cast<int64_t>(heads) * c_head;
+  ch.off = static_cast<int64_t>(ch.h0) * c_head;
+  return ch;
+}
+
+template <int kE, bool kVec>
+__device__ __forceinline__ void chunk_weights(const Chunk& ch, const float* __restrict__ a_src,
+                                              const float* __restrict__ a_dst, int c_head,
+                                              int lane, int (&hd)[kE], float (&ws)[kE],
+                                              float (&wd)[kE]) {
+#pragma unroll
+  for (int j = 0; j < kE; ++j) {
+    const int k = chunk_index<kVec>(lane, j);
+    const bool in = k < ch.len;
+    hd[j] = in ? k / c_head : -1;
+    ws[j] = in ? __ldg(a_src + ch.off + k) : 0.f;
+    wd[j] = in ? __ldg(a_dst + ch.off + k) : 0.f;
+  }
+}
+
+// s_src, s_dst [n_rows, heads] from z [n_rows, heads, c_head]; chunk blockIdx.y.
+template <int kE, bool kVec>
+__global__ void __launch_bounds__(kThreads)
+gat_scores_kernel(const float* __restrict__ z, const float* __restrict__ a_src,
+                  const float* __restrict__ a_dst, float* __restrict__ s_src,
+                  float* __restrict__ s_dst, int64_t n_rows, int heads, int c_head,
+                  int chunk_heads) {
+  const int lane = threadIdx.x & 31;
+  const Chunk ch = chunk_of(heads, c_head, chunk_heads);
+  int hd[kE];
+  float ws[kE], wd[kE];
+  chunk_weights<kE, kVec>(ch, a_src, a_dst, c_head, lane, hd, ws, wd);
+  const int64_t warps = static_cast<int64_t>(gridDim.x) * kWarps;
+  for (int64_t i = static_cast<int64_t>(blockIdx.x) * kWarps + (threadIdx.x >> 5); i < n_rows;
+       i += warps) {
+    float v[kE];
+    load_chunk<kE, kVec>(z + i * ch.stride + ch.off, lane, ch.len, v);
+    float mine_s = 0.f, mine_d = 0.f;
+    for (int h = 0; h < ch.hc; ++h) {  // uniform across the warp
+      float s = 0.f, d = 0.f;
+#pragma unroll
+      for (int j = 0; j < kE; ++j) {
+        if (hd[j] == h) {
+          s = fmaf(v[j], ws[j], s);
+          d = fmaf(v[j], wd[j], d);
+        }
+      }
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1) {
+        s += __shfl_xor_sync(kFull, s, o);
+        d += __shfl_xor_sync(kFull, d, o);
+      }
+      if (lane == h) {
+        mine_s = s;
+        mine_d = d;
+      }
+    }
+    if (lane < ch.hc) {
+      const int64_t si = i * heads + ch.h0 + lane;
+      s_src[si] = mine_s;
+      s_dst[si] = mine_d;
+    }
+  }
+}
+
+// dz [n_rows, heads, c_head] written, and the block's partial sums of da_src and
+// da_dst into part[blockIdx.x, 0 or 1, :] (heads * c_head floats each) over the
+// rows of its warps; chunk blockIdx.y.
+template <int kE, bool kVec>
+__global__ void __launch_bounds__(kThreads)
+gat_score_grad_kernel(const float* __restrict__ z, const float* __restrict__ a_src,
+                      const float* __restrict__ a_dst, const float* __restrict__ ds_src,
+                      const float* __restrict__ ds_dst, float* __restrict__ dz,
+                      float* __restrict__ part, int64_t n_rows, int heads, int c_head,
+                      int chunk_heads) {
+  __shared__ float sums[kWarps][2][32 * kE];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const Chunk ch = chunk_of(heads, c_head, chunk_heads);
+  int hd[kE];
+  float ws[kE], wd[kE], gs[kE], gd[kE];
+  chunk_weights<kE, kVec>(ch, a_src, a_dst, c_head, lane, hd, ws, wd);
+#pragma unroll
+  for (int j = 0; j < kE; ++j) gs[j] = gd[j] = 0.f;
+  const int64_t warps = static_cast<int64_t>(gridDim.x) * kWarps;
+  for (int64_t i = static_cast<int64_t>(blockIdx.x) * kWarps + warp; i < n_rows; i += warps) {
+    const int64_t si = i * heads + ch.h0 + lane;
+    const float my_s = lane < ch.hc ? __ldcs(ds_src + si) : 0.f;
+    const float my_d = lane < ch.hc ? __ldcs(ds_dst + si) : 0.f;
+    float v[kE];
+    load_chunk<kE, kVec>(z + i * ch.stride + ch.off, lane, ch.len, v);
+#pragma unroll
+    for (int j = 0; j < kE; ++j) {
+      // past the chunk's end hd is -1: lane 31's values, times weights and z of 0
+      const float s = __shfl_sync(kFull, my_s, hd[j] & 31);
+      const float d = __shfl_sync(kFull, my_d, hd[j] & 31);
+      gs[j] = fmaf(s, v[j], gs[j]);
+      gd[j] = fmaf(d, v[j], gd[j]);
+      v[j] = fmaf(s, ws[j], d * wd[j]);
+    }
+    store_chunk<kE, kVec>(dz + i * ch.stride + ch.off, lane, ch.len, v);
+  }
+#pragma unroll
+  for (int j = 0; j < kE; ++j) {
+    const int k = chunk_index<kVec>(lane, j);
+    sums[warp][0][k] = gs[j];
+    sums[warp][1][k] = gd[j];
+  }
+  __syncthreads();
+  for (int t = threadIdx.x; t < 2 * ch.len; t += kThreads) {
+    const int which = t < ch.len ? 0 : 1;
+    const int k = t - which * ch.len;
+    float acc = sums[0][which][k];
+#pragma unroll
+    for (int w = 1; w < kWarps; ++w) acc += sums[w][which][k];
+    part[(2 * static_cast<int64_t>(blockIdx.x) + which) * ch.stride + ch.off + k] = acc;
+  }
+}
+
+// da_src and da_dst (width floats each) from the blocks' partial rows part
+// [blocks, 2, width], in block order: warp w of a block sums the blocks w, w +
+// kWarps, ... of 32 of the 2 * width sums, then the block adds its warps' in
+// warp order.
+__global__ void __launch_bounds__(kThreads)
+gat_score_sum_kernel(const float* __restrict__ part, float* __restrict__ da_src,
+                     float* __restrict__ da_dst, int blocks, int64_t width) {
+  __shared__ float sums[kWarps][32];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int64_t t = static_cast<int64_t>(blockIdx.x) * 32 + lane;
+  const bool valid = t < 2 * width;
+  float acc = 0.f;
+  if (valid) {
+#pragma unroll 8
+    for (int b = warp; b < blocks; b += kWarps) acc += __ldcs(part + 2 * width * b + t);
+  }
+  sums[warp][lane] = acc;
+  __syncthreads();
+  if (warp == 0 && valid) {
+#pragma unroll
+    for (int w = 1; w < kWarps; ++w) acc += sums[w][lane];
+    if (t < width) {
+      da_src[t] = acc;
+    } else {
+      da_dst[t - width] = acc;
+    }
+  }
+}
+
+// The blocks of a score kernel's grid: as many as stay resident on the device
+// at once (the warps stride over the rows; blocks beyond that would run in a
+// second, thinner wave), at most one warp a row and at most cap.
+template <typename Kernel>
+int resident_blocks(Kernel kernel, int64_t n_rows, int64_t cap, int& blocks) {
+  int dev = 0, sms = 0, per_sm = 0;
+  int err = static_cast<int>(cudaGetDevice(&dev));
+  if (err == 0) err = static_cast<int>(cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev));
+  if (err == 0) {
+    err = static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                                         kThreads, 0));
+  }
+  if (err != 0) return err;
+  int64_t b = static_cast<int64_t>(sms) * per_sm;
+  if (b > (n_rows + kWarps - 1) / kWarps) b = (n_rows + kWarps - 1) / kWarps;
+  if (b > cap) b = cap;
+  if (b < 1 || b > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidConfiguration);
+  blocks = static_cast<int>(b);
+  return 0;
+}
+
+// The chunk's floats a lane, 4, 8 or 16, and the layout: the kernel's instance.
+template <template <int, bool> class Launch, typename... Args>
+int dispatch_chunk(int len, bool vec, Args... args) {
+  if (len <= 128) return vec ? Launch<4, true>::run(args...) : Launch<4, false>::run(args...);
+  if (len <= 256) return vec ? Launch<8, true>::run(args...) : Launch<8, false>::run(args...);
+  return vec ? Launch<16, true>::run(args...) : Launch<16, false>::run(args...);
+}
+
+template <int kE, bool kVec>
+struct LaunchScores {
+  static int run(int chunks, cudaStream_t stream, const float* z, const float* a_src,
+                 const float* a_dst, float* s_src, float* s_dst, int64_t n_rows, int heads,
+                 int c_head, int hp) {
+    int blocks = 0;
+    const int err = resident_blocks(gat_scores_kernel<kE, kVec>, n_rows, 0x7fffffffLL, blocks);
+    if (err != 0) return err;
+    gat_scores_kernel<kE, kVec><<<dim3(blocks, chunks), kThreads, 0, stream>>>(
+        z, a_src, a_dst, s_src, s_dst, n_rows, heads, c_head, hp);
+    return static_cast<int>(cudaGetLastError());
+  }
+};
+
+template <int kE, bool kVec>
+struct LaunchScoreGrad {
+  static int run(int chunks, cudaStream_t stream, const float* z, const float* a_src,
+                 const float* a_dst, const float* ds_src, const float* ds_dst, float* dz,
+                 float* part, int part_rows, int* blocks, int64_t n_rows, int heads,
+                 int c_head, int hp) {
+    const int err = resident_blocks(gat_score_grad_kernel<kE, kVec>, n_rows, part_rows, *blocks);
+    if (err != 0) return err;
+    gat_score_grad_kernel<kE, kVec><<<dim3(*blocks, chunks), kThreads, 0, stream>>>(
+        z, a_src, a_dst, ds_src, ds_dst, dz, part, n_rows, heads, c_head, hp);
+    return static_cast<int>(cudaGetLastError());
+  }
+};
+
+// The heads of a chunk, the chunks of a row (the grid's y) and whether the
+// float4 layout applies; false for shapes refused.
+inline bool score_chunks(int64_t n_rows, int heads, int c_head, int aligned, int& hp,
+                         int& chunks, bool& vec) {
+  if (n_rows <= 0 || heads <= 0 || c_head <= 0 || c_head > kChunk) return false;
+  hp = chunk_heads(heads, c_head);
+  chunks = (heads + hp - 1) / hp;
+  vec = aligned != 0 && (hp * c_head) % 4 == 0 && (static_cast<int64_t>(heads) * c_head) % 4 == 0;
+  return chunks <= 65535;
+}
+
 }  // namespace
 
 // All pointers contiguous on the current device; every index must lie in [0, n).
@@ -533,4 +852,46 @@ extern "C" int gat_backward_f32(const int32_t* t_row, const int32_t* t_col, cons
   if (c_head <= 256) return launch_backward<32, 2>(t_row, t_col, s_src, q, z, g, dz, ds_src, ds_dst, nnz, heads, c_head, slope, v, stream);
   if (c_head <= 512) return launch_backward<32, 4>(t_row, t_col, s_src, q, z, g, dz, ds_src, ds_dst, nnz, heads, c_head, slope, v, stream);
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// z [n_rows, heads, c_head], a_src and a_dst [heads, c_head], s_src and s_dst
+// [n_rows, heads]; c_head is at most 512. aligned != 0: z (and, backward, dz)
+// 16-byte aligned; the float4 layout is then taken where the shape allows it.
+extern "C" int gat_scores_f32(const float* z, const float* a_src, const float* a_dst,
+                              float* s_src, float* s_dst, int64_t n_rows, int heads,
+                              int c_head, int aligned, cudaStream_t stream) {
+  int hp, chunks;
+  bool vec;
+  if (!score_chunks(n_rows, heads, c_head, aligned, hp, chunks, vec)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return dispatch_chunk<LaunchScores>(hp * c_head, vec, chunks, stream, z, a_src, a_dst, s_src,
+                                      s_dst, n_rows, heads, c_head, hp);
+}
+
+// ds_src, ds_dst [n_rows, heads]; dz [n_rows, heads, c_head] written whole;
+// part [part_rows, 2, heads * c_head] scratch, a partial row of da_src and one
+// of da_dst for each of the grid's blocks (part_rows at least the blocks the
+// device holds at once: 16 an SM); da_src, da_dst [heads, c_head] written
+// whole. Two launches: the gradient, then the sum of the blocks' partial rows.
+extern "C" int gat_score_grad_f32(const float* z, const float* a_src, const float* a_dst,
+                                  const float* ds_src, const float* ds_dst, float* dz,
+                                  float* part, int part_rows, float* da_src, float* da_dst,
+                                  int64_t n_rows, int heads, int c_head, int aligned,
+                                  cudaStream_t stream) {
+  int hp, chunks, blocks = 0;
+  bool vec;
+  if (!score_chunks(n_rows, heads, c_head, aligned, hp, chunks, vec) || part_rows <= 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int err = dispatch_chunk<LaunchScoreGrad>(hp * c_head, vec, chunks, stream, z, a_src,
+                                                  a_dst, ds_src, ds_dst, dz, part, part_rows,
+                                                  &blocks, n_rows, heads, c_head, hp);
+  if (err != 0) return err;
+  const int64_t width = static_cast<int64_t>(heads) * c_head;
+  const int64_t sum_blocks = (2 * width + 31) / 32;
+  if (sum_blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidConfiguration);
+  gat_score_sum_kernel<<<static_cast<unsigned>(sum_blocks), kThreads, 0, stream>>>(
+      part, da_src, da_dst, blocks, width);
+  return static_cast<int>(cudaGetLastError());
 }

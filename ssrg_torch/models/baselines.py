@@ -8,9 +8,12 @@ graph product:
   is a :func:`ssrg_torch.ops.sparse.differentiable_adjacency`: the ELL
   kernel forward, and backward on the pack of ``A^T`` (SAGE's row-mean
   ``D^-1 A`` is not symmetric, so its backward has a pack of its own).
-- GAT scores every edge of an :class:`EdgeList` and takes a per-destination
-  softmax with segment ops (``scatter_reduce``, ``index_add``): plain tensor
-  code, as it is XLA in the reference. Over an attention listing
+- GAT scores every node with
+  :func:`ssrg_torch.ops.gat_attention.gat_scores` (``(z * a).sum(-1)`` on
+  the CPU, kernels that read z once on a card), then every edge of an
+  :class:`EdgeList`, and takes a per-destination softmax with segment ops
+  (``scatter_reduce``, ``index_add``): plain tensor code, as it is XLA in
+  the reference. Over an attention listing
   (:meth:`EdgeList.attention`) each layer's attention is instead
   :func:`ssrg_torch.ops.gat_attention.gat_attention`: the hand-written CUDA
   kernels on a card (no per-edge message is held), their plain versions on
@@ -43,7 +46,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ssrg_torch.models.heads import BatchNorm, Dropout
-from ssrg_torch.ops.gat_attention import gat_attention
+from ssrg_torch.ops.gat_attention import gat_attention, gat_scores
 from ssrg_torch.ops.sddmm import edge_softmax
 from ssrg_torch.utils import DeviceLike, init_dense_, resolve_device, variance_scaling_
 
@@ -272,7 +275,8 @@ class BaselineGAT(nn.Module):
     card, which have no dropout of the weights: a card's tensors in
     training with ``attn_dropout`` above 0 raise ``ValueError``, and only
     the CPU takes the plain path there. The reference's padded list always
-    takes the plain path."""
+    takes the plain path. Both take their scores from
+    :func:`ssrg_torch.ops.gat_attention.gat_scores`."""
 
     def __init__(self, feat_dim: int, hidden_dim: int, output_dim: int,
                  num_layers: int = 2, heads: int = 8, dropout: float = 0.5,
@@ -332,8 +336,8 @@ class BaselineGAT(nn.Module):
             last = i == self.num_layers - 1
             x_in = x
             z = getattr(self, f"w_{i}")(x).view(n, h, d)
-            score_src = (z * getattr(self, f"a_src_{i}")).sum(-1)   # [N, H]
-            score_dst = (z * getattr(self, f"a_dst_{i}")).sum(-1)
+            score_src, score_dst = gat_scores(z, getattr(self, f"a_src_{i}"),
+                                              getattr(self, f"a_dst_{i}"))   # [N, H]
             if fused:
                 out = gat_attention(z, score_src, score_dst, edges, self.negative_slope)
             else:

@@ -1,6 +1,6 @@
-"""GAT edge attention without per-edge messages: the hand-written CUDA
-kernels, their plain PyTorch versions, the autograd function over both and
-its launch count.
+"""GAT edge attention without per-edge messages, and the attention scores:
+the hand-written CUDA kernels, their plain PyTorch versions, the autograd
+functions over both and their launch counts.
 
 ``gat_attention(z, s_src, s_dst, edges, negative_slope)`` computes, for
 ``z = [N, H, C]`` and the scores ``s_src, s_dst = [N, H]`` over the entries
@@ -34,6 +34,19 @@ launches the kernels or raises. The forward pass is the span ``attn`` and
 the backward pass, on the autograd thread, ``attn.bwd``, both timed on the
 stream while a profiler runs; they count ``attn.edges`` (entries),
 ``attn.heads`` and ``attn.launches`` (kernel launches; 0 on the CPU).
+
+``gat_scores(z, a_src, a_dst)`` computes the scores the attention takes,
+``s_src[n, h] = <z[n, h, :], a_src[h, :]>`` and ``s_dst`` likewise, with
+gradients to ``z``, ``a_src`` and ``a_dst``. For CUDA tensors the forward
+pass is ``gat_scores_kernel`` (:func:`scores`) and the backward pass
+``gat_score_grad_kernel`` then ``gat_score_sum_kernel`` (:func:`score_grad`:
+the scores' share of ``dz``, and ``da_src``, ``da_dst`` summed in a fixed
+order), each reading z once; the spans ``attn.scores`` and, on the autograd
+thread, ``attn.scores.bwd``, both outside ``attn`` and ``attn.bwd``, count
+``attn.score_launches``. CPU tensors take ``(z * a).sum(-1)`` for each score
+(:func:`scores_plain`) under PyTorch's own autograd, in the span
+``attn.scores`` (0 launches). The score kernels count in
+``gat_scores.launches`` and, by name, in ``gat_attention.kernel_launches``.
 """
 
 from __future__ import annotations
@@ -56,16 +69,32 @@ CHUNK = 1 << 18
 # kernel launches of a forward and of a backward pass on a card
 FORWARD_LAUNCHES = 3
 BACKWARD_LAUNCHES = 2
+# ... and of the scores'
+SCORE_FORWARD_LAUNCHES = 1
+SCORE_BACKWARD_LAUNCHES = 2
+# the most blocks of the score gradient an SM holds at once (2,048 threads of
+# 128-thread blocks): each keeps a partial row of da in the scratch the wrapper
+# allocates
+SCORE_MAX_BLOCKS_PER_SM = 16
 
 
-def _declare(lib: ctypes.CDLL) -> None:
+def _signatures() -> dict:
     p, i64, i32, f32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, ctypes.c_float
-    lib.gat_stats_f32.argtypes = [p, p, p, p, p, p, i64, i32, f32, p]
-    lib.gat_aggregate_f32.argtypes = [p, p, p, p, p, p, p, p, i64, i32, i32, f32, i32, p]
-    lib.gat_rowdot_f32.argtypes = [p, p, p, p, p, p, i64, i32, i32, p]
-    lib.gat_backward_f32.argtypes = [p, p, p, p, p, p, p, p, p, i64, i32, i32, f32, i32, p]
-    for fn in (lib.gat_stats_f32, lib.gat_aggregate_f32, lib.gat_rowdot_f32,
-               lib.gat_backward_f32):
+    return {"gat_stats_f32": [p, p, p, p, p, p, i64, i32, f32, p],
+            "gat_aggregate_f32": [p, p, p, p, p, p, p, p, i64, i32, i32, f32, i32, p],
+            "gat_rowdot_f32": [p, p, p, p, p, p, i64, i32, i32, p],
+            "gat_backward_f32": [p, p, p, p, p, p, p, p, p, i64, i32, i32, f32, i32, p],
+            "gat_scores_f32": [p, p, p, p, p, i64, i32, i32, i32, p],
+            "gat_score_grad_f32": [p, p, p, p, p, p, p, i32, p, p, i64, i32, i32, i32, p]}
+
+
+def _declare(lib: ctypes.CDLL, entries=None) -> None:
+    """Set the argument and result types of ``lib``'s C entries (``entries``:
+    those named; by default every one)."""
+    sig = _signatures()
+    for name in entries or sig:
+        fn = getattr(lib, name)
+        fn.argtypes = sig[name]
         fn.restype = ctypes.c_int
 
 
@@ -73,18 +102,27 @@ def _lib() -> ctypes.CDLL:
     return _nvcc.library(NAME, _declare)
 
 
-# each entry point's kernel and its launches a call
-KERNELS = {"gat_stats_f32": ("gat_stats_kernel", 2),
-           "gat_aggregate_f32": ("gat_aggregate_kernel", 1),
-           "gat_rowdot_f32": ("gat_rowdot_kernel", 1),
-           "gat_backward_f32": ("gat_backward_kernel", 1)}
+# each entry point's kernels and their launches a call
+KERNELS = {"gat_stats_f32": {"gat_stats_kernel": 2},
+           "gat_aggregate_f32": {"gat_aggregate_kernel": 1},
+           "gat_rowdot_f32": {"gat_rowdot_kernel": 1},
+           "gat_backward_f32": {"gat_backward_kernel": 1},
+           "gat_scores_f32": {"gat_scores_kernel": 1},
+           "gat_score_grad_f32": {"gat_score_grad_kernel": 1, "gat_score_sum_kernel": 1}}
+
+
+SCORE_ENTRIES = ("gat_scores_f32", "gat_score_grad_f32")
 
 
 def _launch(entry: str, *args) -> None:
+    """Call ``entry``; count its launches (in ``gat_scores.launches`` for
+    the scores', ``gat_attention.launches`` for the others') and its
+    kernels' by name."""
     _nvcc.check_launch(NAME, getattr(_lib(), entry)(*args))
-    kernel, n = KERNELS[entry]
-    gat_attention.launches += n
-    gat_attention.kernel_launches[kernel] += n
+    for kernel, n in KERNELS[entry].items():
+        gat_attention.kernel_launches[kernel] += n
+    (gat_scores if entry in SCORE_ENTRIES else gat_attention).launches += sum(
+        KERNELS[entry].values())
 
 
 def _aligned(*tensors: torch.Tensor) -> int:
@@ -301,5 +339,120 @@ def gat_attention(z: torch.Tensor, s_src: torch.Tensor, s_dst: torch.Tensor, edg
     return _forward(z, s_src, s_dst, edges, slope)[0]
 
 
+# -- the scores ------------------------------------------------------------------
+
+
+def scores_plain(z, a_src, a_dst) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The scores ``(z * a_src).sum(-1)`` and ``(z * a_dst).sum(-1)``,
+    ``[N, H]`` each, for ``z = [N, H, C]`` and ``a = [1, H, C]``."""
+    return (z * a_src).sum(-1), (z * a_dst).sum(-1)
+
+
+def _score_part_rows(device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count * SCORE_MAX_BLOCKS_PER_SM
+
+
+def scores(z, a_src, a_dst) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`scores_plain` on its kernel for CUDA tensors (one launch)."""
+    if z.device.type != "cuda":
+        return scores_plain(z, a_src, a_dst)
+    n, h, c = z.shape
+    s_src = torch.empty((n, h), dtype=torch.float32, device=z.device)
+    s_dst = torch.empty_like(s_src)
+    if not (n and c):
+        return s_src.zero_(), s_dst.zero_()
+    with torch.cuda.device(z.device):
+        _launch("gat_scores_f32", z.data_ptr(), a_src.data_ptr(), a_dst.data_ptr(),
+                s_src.data_ptr(), s_dst.data_ptr(), n, h, c, _aligned(z), _nvcc.stream_of(z))
+    return s_src, s_dst
+
+
+def score_grad_plain(z, a_src, a_dst, ds_src, ds_dst):
+    """The scores' gradients ``(dz, da_src, da_dst)`` given ``ds_src`` and
+    ``ds_dst``: ``dz = ds_src a_src + ds_dst a_dst`` (``[N, H, C]``) and
+    ``da = sum over the rows of ds z`` (``a``'s shape)."""
+    dz = ds_src[..., None] * a_src + ds_dst[..., None] * a_dst
+    return (dz, (ds_src[..., None] * z).sum(0, keepdim=True),
+            (ds_dst[..., None] * z).sum(0, keepdim=True))
+
+
+def score_grad(z, a_src, a_dst, ds_src, ds_dst):
+    """:func:`score_grad_plain` on its kernels for CUDA tensors (two
+    launches: the gradient, then the sum of the blocks' partial rows of
+    ``da``, in a fixed order)."""
+    if z.device.type != "cuda":
+        return score_grad_plain(z, a_src, a_dst, ds_src, ds_dst)
+    n, h, c = z.shape
+    if not (n and c):
+        return torch.zeros_like(z), torch.zeros_like(a_src), torch.zeros_like(a_dst)
+    dz = torch.empty_like(z)
+    da_src, da_dst = torch.empty_like(a_src), torch.empty_like(a_dst)
+    rows = _score_part_rows(z.device)
+    part = torch.empty((rows, 2, h * c), dtype=torch.float32, device=z.device)
+    with torch.cuda.device(z.device):
+        _launch("gat_score_grad_f32", z.data_ptr(), a_src.data_ptr(), a_dst.data_ptr(),
+                ds_src.data_ptr(), ds_dst.data_ptr(), dz.data_ptr(), part.data_ptr(), rows,
+                da_src.data_ptr(), da_dst.data_ptr(), n, h, c, _aligned(z, dz),
+                _nvcc.stream_of(z))
+    return dz, da_src, da_dst
+
+
+def _scores_forward(z, a_src, a_dst):
+    with span("attn.scores", device=True):
+        launches = gat_scores.launches
+        out = scores(z, a_src, a_dst)
+        count("attn.score_launches", gat_scores.launches - launches)
+    return out
+
+
+class _GATScores(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, z, a_src, a_dst):
+        ctx.save_for_backward(z, a_src, a_dst)
+        return _scores_forward(z, a_src, a_dst)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, ds_src, ds_dst):
+        z, a_src, a_dst = ctx.saved_tensors
+        with span("attn.scores.bwd", device=True):
+            launches = gat_scores.launches
+            grads = score_grad(z, a_src, a_dst, ds_src.contiguous(), ds_dst.contiguous())
+            count("attn.score_launches", gat_scores.launches - launches)
+        return grads
+
+
+def _check_scores(z: torch.Tensor, a_src: torch.Tensor, a_dst: torch.Tensor) -> None:
+    if z.dim() != 3:
+        raise TypeError(f"gat_scores: z must be [N, H, C], got {tuple(z.shape)}")
+    n, h, c = z.shape
+    for name, a in (("a_src", a_src), ("a_dst", a_dst)):
+        if tuple(a.shape) != (1, h, c):
+            raise TypeError(f"gat_scores: {name} must be [1, {h}, {c}], got {tuple(a.shape)}")
+    if z.dtype != torch.float32 or a_src.dtype != torch.float32 or a_dst.dtype != torch.float32:
+        raise TypeError("gat_scores: z, a_src and a_dst must be float32")
+    if c > MAX_HEAD_WIDTH:
+        raise TypeError(f"gat_scores: a head of {c} features; the kernels take at most "
+                        f"{MAX_HEAD_WIDTH}")
+    _nvcc.check_operands("gat_scores", z=z, a_src=a_src, a_dst=a_dst)
+
+
+def gat_scores(z: torch.Tensor, a_src: torch.Tensor, a_dst: torch.Tensor
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The attention scores ``s_src, s_dst = [N, H]`` of ``z = [N, H, C]``
+    and the weights ``a_src, a_dst = [1, H, C]``, with gradients to all
+    three where grad mode wants them. CUDA tensors run the kernels (counted
+    in ``gat_scores.launches``: one a forward pass, two a backward), CPU
+    tensors ``(z * a).sum(-1)`` under PyTorch's autograd."""
+    if z.device.type == "cuda":
+        z, a_src, a_dst = z.contiguous(), a_src.contiguous(), a_dst.contiguous()
+        _check_scores(z, a_src, a_dst)
+        if torch.is_grad_enabled() and (z.requires_grad or a_src.requires_grad
+                                        or a_dst.requires_grad):
+            return _GATScores.apply(z, a_src, a_dst)
+    return _scores_forward(z, a_src, a_dst)
+
+
 gat_attention.launches = 0
-gat_attention.kernel_launches = dict.fromkeys((k for k, _ in KERNELS.values()), 0)
+gat_attention.kernel_launches = dict.fromkeys((k for ks in KERNELS.values() for k in ks), 0)
+gat_scores.launches = 0

@@ -349,6 +349,120 @@ def test_cluster_batches_of_the_reference_form_keep_the_padded_list(data):
         assert batch.adj_dev.row.shape[0] % 512 == 0
 
 
+SCORE_SHAPES = [(h, c) for h in (1, 4) for c in (47, 128, 30)]  # 30: not whole float4s
+
+
+def _score_inputs(n, h, c, dtype=torch.float32, seed=0, device="cpu"):
+    g = torch.Generator().manual_seed(seed)
+    z = torch.randn((n, h, c), generator=g, dtype=dtype)
+    a_src = torch.randn((1, h, c), generator=g, dtype=dtype)
+    a_dst = torch.randn((1, h, c), generator=g, dtype=dtype)
+    ds_src = torch.randn((n, h), generator=g, dtype=dtype)
+    ds_dst = torch.randn((n, h), generator=g, dtype=dtype)
+    return [t.to(device) for t in (z, a_src, a_dst, ds_src, ds_dst)]
+
+
+@pytest.mark.parametrize("h,c", SCORE_SHAPES)
+def test_the_plain_scores_are_the_expression_and_its_gradient(h, c):
+    """``scores_plain`` is ``(z * a).sum(-1)`` bit for bit, and
+    ``score_grad_plain`` is autograd's gradient of both scores."""
+    z, a_src, a_dst, ds_src, ds_dst = _score_inputs(37, h, c)
+    got = ga.scores_plain(z, a_src, a_dst)
+    assert torch.equal(got[0], (z * a_src).sum(-1)) and torch.equal(got[1], (z * a_dst).sum(-1))
+    leaves = [t.clone().requires_grad_(True) for t in (z, a_src, a_dst)]
+    s_src, s_dst = (leaves[0] * leaves[1]).sum(-1), (leaves[0] * leaves[2]).sum(-1)
+    want = torch.autograd.grad((s_src, s_dst), leaves, (ds_src, ds_dst))
+    for g, w in zip(ga.score_grad_plain(z, a_src, a_dst, ds_src, ds_dst), want):
+        assert g.shape == w.shape
+        torch.testing.assert_close(g, w, rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("h,c", SCORE_SHAPES)
+def test_gat_scores_on_the_cpu_takes_the_expression_under_autograd(h, c):
+    """On the CPU ``gat_scores`` gives the expression's values and autograd's
+    gradients of them, bit for bit, in the span ``attn.scores`` with no
+    launch; the autograd function over the plain steps agrees."""
+    z, a_src, a_dst, ds_src, ds_dst = _score_inputs(37, h, c)
+    leaves = [t.clone().requires_grad_(True) for t in (z, a_src, a_dst)]
+    reset_spans()
+    got = ga.gat_scores(*leaves)
+    assert span_totals()["attn.scores"]["calls"] == 1
+    assert counter_totals()["attn.score_launches"] == 0
+    got_grads = torch.autograd.grad(got, leaves, (ds_src, ds_dst))
+    want = ((leaves[0] * leaves[1]).sum(-1), (leaves[0] * leaves[2]).sum(-1))
+    want_grads = torch.autograd.grad(want, leaves, (ds_src, ds_dst))
+    for g, w in zip((*got, *got_grads), (*want, *want_grads)):
+        assert torch.equal(g, w)
+    fn = ga._GATScores.apply(*leaves)
+    fn_grads = torch.autograd.grad(fn, leaves, (ds_src, ds_dst))
+    for g, w in zip((*fn, *fn_grads), (*want, *want_grads)):
+        torch.testing.assert_close(g, w, rtol=1e-6, atol=1e-6)
+
+
+def test_the_scores_function_passes_gradcheck():
+    """The autograd function over the plain steps, in float64."""
+    z, a_src, a_dst, _, _ = _score_inputs(5, 2, 3, dtype=torch.float64)
+    args = [t.requires_grad_(True) for t in (z, a_src, a_dst)]
+    assert torch.autograd.gradcheck(ga._GATScores.apply, args)
+
+
+@pytest.mark.parametrize("published", [True, False])
+def test_baseline_gat_scores_are_the_reference_expression_on_the_cpu(data, published,
+                                                                      monkeypatch):
+    """Both forms of ``BaselineGAT`` give, on the CPU, the output and
+    gradients they gave with the scores written as ``(z * a).sum(-1)`` in
+    the model, bit for bit."""
+    from ssrg_torch.models import baselines
+
+    def run():
+        module = BaselineGAT(F_IN, 8, 47, 3, heads=4, published=published)
+        module.reset_parameters(torch.Generator().manual_seed(2))
+        bind_generator(module.train(), torch.Generator().manual_seed(3))
+        edges = EdgeList.attention(_adj(data)) if published else EdgeList.from_scipy(_adj(data))
+        out = module(data.x, edges)
+        out.square().sum().backward()
+        return [out.detach()] + [p.grad for _, p in sorted(module.named_parameters())]
+
+    got = run()
+    monkeypatch.setattr(baselines, "gat_scores",
+                        lambda z, a_src, a_dst: ((z * a_src).sum(-1), (z * a_dst).sum(-1)))
+    want = run()
+    assert len(got) == len(want) and all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+def test_baseline_task_counts_the_score_spans(data):
+    """Two epochs of the published form: the scores' span once a layer in
+    each forward pass (training and evaluation), none of it inside the
+    attention's; no launch on the CPU."""
+    reset_spans()
+    BaselineTask(_dataset(data), "gat", TrainingConfig(num_epochs=2, lr=0.01), hidden_dim=8,
+                 num_layers=3, heads=4, published=True, device="cpu")
+    spans, counts = span_totals(), counter_totals()
+    assert spans["attn.scores"]["calls"] == 12 and spans["attn"]["calls"] == 12
+    assert counts["attn.score_launches"] == 0
+
+
+def test_the_score_reader_sums_the_score_spans(monkeypatch):
+    """``score_device_ms.gat`` sums the capture's ``attn.scores`` and
+    ``attn.scores.bwd`` device times over the epochs, and reads nothing where
+    the program keeps no such span (the attention's own are not its)."""
+    from portbench import manifest, spans
+    from portbench.tracing import TraceView
+
+    def rec(name, start, end, device_ms):
+        return {"name": name, "start_us": start, "end_us": end, "device_ms": device_ms,
+                "thread": 1, "parent": None, "counts": {}}
+
+    records = [rec("attn.scores", 0, 5, 1.5), rec("attn", 5, 10, 30.0),
+               rec("attn.scores.bwd", 20, 25, 2.5), rec("attn.bwd", 12, 18, 40.0)]
+    monkeypatch.setattr(spans, "records", lambda: records)
+    view = TraceView(2, 1.0, 0.5, [("kernel", "k", 0.0, 80.0)], [])
+    reader = manifest.reader("score_device_ms.gat")
+    assert reader.read(view, {}) == pytest.approx(2.0)
+    records[:] = [r for r in records if not r["name"].startswith("attn.scores")]
+    assert reader.read(view, {}) is None
+
+
 # -- on a card -----------------------------------------------------------------
 
 
@@ -482,3 +596,47 @@ def test_attention_dropout_above_zero_raises_on_the_card(cuda_device, data):
         out = module.eval()(x, edges)
     assert ga.gat_attention.launches - before == 3 * ga.FORWARD_LAUNCHES
     assert out.shape == (N, 47) and torch.isfinite(out).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", CARD_CASES, ids=lambda c: "n{}_hub{}_h{}_c{}".format(*c))
+def test_score_kernels_match_their_plain_versions(cuda_device, case):
+    """Both score kernels against their plain versions on the same card
+    tensors, and the gradient's bits the same in two runs (``da`` is summed
+    in a fixed order, without atomics)."""
+    n, _hub, h, c = case
+    z, a_src, a_dst, ds_src, ds_dst = _score_inputs(n, h, c, device=cuda_device)
+    got = ga.scores(z, a_src, a_dst)
+    want = ga.scores_plain(z, a_src, a_dst)
+    grads = ga.score_grad(z, a_src, a_dst, ds_src, ds_dst)
+    again = ga.score_grad(z, a_src, a_dst, ds_src, ds_dst)
+    want_grads = ga.score_grad_plain(z, a_src, a_dst, ds_src, ds_dst)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert _gap(g, w) <= 1e-5
+    for g, w in zip(grads, want_grads):
+        assert g.shape == w.shape and _gap(g, w) <= 1e-5
+    assert all(torch.equal(g, a) for g, a in zip(grads, again))
+
+
+@pytest.mark.cuda
+def test_the_score_function_on_the_card_counts_its_launches(cuda_device):
+    """One launch forward and two backward (the gradient, the sum of ``da``),
+    by name in ``gat_attention.kernel_launches``, none in the attention's
+    count; the gradients those of the expression."""
+    z, a_src, a_dst, ds_src, ds_dst = _score_inputs(3000, 4, 47, device=cuda_device)
+    leaves = [t.clone().requires_grad_(True) for t in (z, a_src, a_dst)]
+    before, attention = ga.gat_scores.launches, ga.gat_attention.launches
+    named = dict(ga.gat_attention.kernel_launches)
+    s = ga.gat_scores(*leaves)
+    assert ga.gat_scores.launches - before == ga.SCORE_FORWARD_LAUNCHES
+    grads = torch.autograd.grad(s, leaves, (ds_src, ds_dst))
+    torch.cuda.synchronize()
+    assert ga.gat_scores.launches - before == (ga.SCORE_FORWARD_LAUNCHES
+                                               + ga.SCORE_BACKWARD_LAUNCHES)
+    assert ga.gat_attention.launches == attention
+    moved = {k: v - named[k] for k, v in ga.gat_attention.kernel_launches.items() if v != named[k]}
+    assert moved == {"gat_scores_kernel": 1, "gat_score_grad_kernel": 1,
+                     "gat_score_sum_kernel": 1}
+    for g, w in zip(grads, ga.score_grad_plain(z, a_src, a_dst, ds_src, ds_dst)):
+        assert _gap(g, w) <= 1e-5
