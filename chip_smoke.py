@@ -12,37 +12,28 @@ Phases, each printing JSON lines:
               held equal to the numpy version's, its ELL/hybrid packer to
               the numpy packer's on the headline and power-law graphs, all
               timed, beside the OpenMP thread count.
-2. kernels  — the ELL kernel against its plain PyTorch version on the card:
-              the headline hybrid pack (the serving path's own shapes), the
-              power-law pack, the headline pack folded onto an x that fits
-              in L2, and ragged packs; times from CUDA events for the
-              kernel, the plain version and one PyTorch library call. The
-              GAT attention and score kernels (``gat_case``) on the
-              power-law graph's attention listing at 4 heads of 128 and of
-              47 (the GAT cell's widths): each step held to its plain
-              version within its sum-order bound and timed beside it and
-              its bound.
-3. slice    — the serving path at full width: GAMLP (hidden 256, 3 layers,
+   kernels  — every kernel of ``tools/kernels.py``'s table (ELL, COO,
+              banded on both paths, rest, the GAT attention and score
+              steps) with the source's own constants, on each of the
+              table's cases: each step held to its plain version within
+              the kernel's sum-order tolerance, then timed beside it, a
+              library call and its bound (the tool's records).
+2. slice    — the serving path at full width: GAMLP (hidden 256, 3 layers,
               K = 3, 40 classes) on a 169,343-node, F = 128 random graph,
               through ``Predictor`` with ``engine="auto"`` (hybrid), random
               weights from a seeded ``torch.Generator``; the kernel's launch
               count, hop K against float64 scipy, and three request sizes,
               each asked once and then five times more.
-4. locality — the locality tier on two 169,343-node, F = 128 graphs: a
+3. locality — the locality tier on two 169,343-node, F = 128 graphs: a
               banded graph with shuffled ids (RCM finds the band) and
               ``community_graph`` (label propagation finds the clusters).
-              Each layer of the reorder path timed alone; the banded kernel
-              on the f32 pack (its stream path) and the bf16 pack (its
-              tensor-core path) and the rest kernel on the community rest
-              (f32 and bf16) against their plain versions, timed beside
-              their bounds, the rate of device memory they reach and a
-              library call, then on ragged packs (the tensor-core path's
-              tile edges among them); GAMLP through ``Predictor`` with
-              ``reorder_banded`` (f32, bf16) and ``reorder_tiled`` +
-              ``spmm_bf16``, each with its kernel's launch count (the
-              banded kernel's by path), hop K against float64 scipy and the
-              requests; each ``prepare`` beside the 5 s limit.
-5. train    — training through ``NodeClassification`` on a 169,343-node,
+              Each layer of the reorder path timed alone; GAMLP through
+              ``Predictor`` with ``reorder_banded`` (f32, bf16) and
+              ``reorder_tiled`` + ``spmm_bf16``, each with its kernel's
+              launch count (the banded kernel's by path), hop K against
+              float64 scipy and the requests; each ``prepare`` beside the
+              5 s limit.
+4. train    — training through ``NodeClassification`` on a 169,343-node,
               F = 128, 40-class SBM with ogbn-arxiv's split sizes: GAMLP at
               full width (minibatches of 10,000, batched evaluation, a
               checkpoint at every new best, served again by ``Predictor``),
@@ -51,12 +42,10 @@ Phases, each printing JSON lines:
               the pack of A^T. Checks: the kernel's launches in ``prepare``
               and per epoch, finite and falling losses, the accuracy the
               checkpoint recorded served again, and fc1's gradient against
-              autograd through the plain version; the autograd ``Function``
-              against the plain version on a symmetric and an asymmetric
-              pack at F = 256 and F = 40, timed beside the bound. Three more
-              GCN epochs under ``device_trace``: their top device operations
-              and the device-busy share.
-6. spectral — the spectral and directed-operator models on the ELL kernel:
+              autograd through the plain version. Three more GCN epochs
+              under ``device_trace``: their top device operations and the
+              device-busy share.
+5. spectral — the spectral and directed-operator models on the ELL kernel:
               a directed graph at ogbn-arxiv's size (169,343 nodes,
               1,166,243 directed edges, F = 128, 40 classes) trains magnet
               (complex propagation, 12 launches a ``prepare``, hop K held to
@@ -67,9 +56,8 @@ Phases, each printing JSON lines:
               F = 1,024, training with the kernel forward and backward on the
               packs of Φᵀ and Φ⁻ᵀ (8 launches an epoch, conv1's gradient held
               to the plain version within a first-order bound), and the GWNN
-              trainer. The new kernel shapes timed (the magnetic imaginary
-              pack, PᵀP, the Laplacian at F = 1,024, Φ at F = 256 and 3, Φᵀ).
-7. robust   — the robustness pipeline at ogbn-arxiv's size
+              trainer.
+6. robust   — the robustness pipeline at ogbn-arxiv's size
               (``planetoid_like(**TRAIN_GRAPH)``): ``sparsify_dataset`` at
               ``DataProcessConfig``'s rates (0.6, 0.6) into a temporary
               directory (the masked share within 5 sigma, the kept
@@ -83,8 +71,8 @@ Phases, each printing JSON lines:
               ``LinkClassification`` runs: the GCN's link head (both SpMMs
               at F = 256 on the observed-edge pack, 8 launches an epoch,
               fc1's gradient within its first-order bound) and GAMLP's (3 in
-              ``prepare``). The new kernel shapes timed (``robust_cases``).
-8. baseline — the message-passing baselines through ``BaselineTask`` on the
+              ``prepare``).
+7. baseline — the message-passing baselines through ``BaselineTask`` on the
               ``train`` graph: GCN and SAGE (3 layers x 256; the ELL kernel
               forward and, on the pack of A^T, backward: 9 and 8 launches an
               epoch, the first layer's gradient within its first-order
@@ -99,16 +87,15 @@ Phases, each printing JSON lines:
               their gradient and its sum; then the GCN on 128 cluster
               parts, 8 a batch.
               Each: ``prepare`` seconds, epoch and evaluation times, peak
-              device memory, launches checked, best val >= 0.25. SAGE's
-              packs (A, and A^T as the backward) timed at F = 256.
-9. ooc      — single-card out-of-core: the ``train`` graph written as
+              device memory, launches checked, best val >= 0.25.
+8. ooc      — single-card out-of-core: the ``train`` graph written as
               ``.npy`` files, spooled into 8 shards, K = 3 hops block at a
               time (both schedules, the ``coo`` engine, the bf16 transfer)
               held to the in-core hybrid ``propagate``, ELL launches per hop
               equal to the non-empty buckets, ``dest_outer``'s device memory
               within an O(block*F + bucket) bound; ``run_outofcore`` SGC and
-              GAMLP on the artifacts; the largest bucket's pack timed.
-10. dist    — the distributed tier on ``torch.distributed`` over the
+              GAMLP on the artifacts.
+9. dist     — the distributed tier on ``torch.distributed`` over the
               ``train`` graph, on a world of one NCCL rank in this process
               (``phase_dist(ranks=4)`` runs one process per card on four):
               K = 3 hops through ``dist_propagate`` (coo),
@@ -121,14 +108,7 @@ Phases, each printing JSON lines:
               ``build_spmd_context`` + ``run_epochs_scan`` (20 epochs, hops
               against ``NodeClassification``'s precompute), and the graph
               spooled and loaded by ``build_spmd_context_from_spool``.
-11. bench   — ``ssrg_torch.bench.run_bench()`` at its defaults (169,343
-              nodes, degree 13.7, F = 128, K = 3, 10 iterations): its JSON
-              line, each tier's kernel launches (headline and sharded: ELL,
-              clustered: rest, banded: banded, all on its tensor-core path),
-              the headline hops traced with ``device_trace``, and the banded
-              kernel against its plain version on the banded tier's dense
-              bf16 pack, timed.
-12. cli     — runs after ``dist`` (no process group live) and before
+10. cli     — runs after ``dist`` (no process group live) and before
               ``bench``: ``ssrg_torch.cli.main`` in this process on the
               ``train`` graph written as a ``.pt`` dataset directory
               (``sparsify_dataset`` at rates 0, 0): ``train`` (GAMLP 3 x 256,
@@ -139,78 +119,53 @@ Phases, each printing JSON lines:
               that it ends, and ``bench`` at its defaults (nnz and every rate
               checked); each command's launches counted (ELL 3 for train,
               predict and spmd; the bench's three runs of each tier).
+11. bench   — ``ssrg_torch.bench.run_bench()`` at its defaults (169,343
+              nodes, degree 13.7, F = 128, K = 3, 10 iterations): its JSON
+              line, each tier's kernel launches (headline and sharded: ELL,
+              clustered: rest, banded: banded, all on its tensor-core path)
+              and the headline hops traced with ``device_trace``.
 
-``--trace_dir`` keeps the three Chrome traces (default: a temporary directory).
-Then a ``{"kernels": [...]}`` line, the card's name and power limit, and as
-the last line ``{"ok": true, "device": {...}}``. Any failed check raises and
-the script exits non-zero without that line; without a CUDA card it exits 2,
-and without the ``ssrg_torch`` package beside it, before printing anything.
+The ``cuda`` tests hold the kernels on ragged and full-size cases too, and
+``tools/kernels.py`` times variants of their constants. ``--trace_dir``
+keeps the three Chrome traces (default: a temporary directory). Then a
+``{"kernels": [...]}`` line (each step's time, plain time, bound and
+largest error), the card's name and power limit, and as the last line
+``{"ok": true, "device": {...}}``. Any failed check raises and the script
+exits non-zero without that line; without a CUDA card it exits 2, and
+without ``tools/card.py`` and the ``ssrg_torch`` package beside it, before
+printing anything.
 """
 
 from __future__ import annotations
 
 import argparse
 import copy
-import dataclasses
 import json
 import logging
 import os
 import platform
-import subprocess
 import sys
 import tempfile
 import time
 
 import numpy as np
 
-HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory (data sheet)
-F32_FLOPS_PER_S = 67e12       # H100 SXM float32 outside the tensor cores
-BF16_FLOPS_PER_S = 989e12     # H100 SXM bf16 tensor cores, dense
-UNIT_ROUNDOFF = 2.0 ** -24    # float32
-NUM_NODES, AVG_DEGREE, NUM_FEATURES, NUM_CLASSES = 169_343, 13.7, 128, 40
-BANDED_NEIGHBOURS, BANDED_REACH = 7, 1000
-L2_ROWS = 16_384              # rows of x in the ELL kernel's L2-resident case
-SEED = 0
+# last on the path, so that no file of tools/ shadows another top-level name
+sys.path.append(os.path.join(os.path.dirname(os.path.abspath(__file__)), "tools"))
+from card import (  # noqa: E402  (tools/card.py)
+    AVG_DEGREE, NUM_CLASSES, NUM_FEATURES, NUM_NODES, SEED, TRAIN_GRAPH, UNIT_ROUNDOFF,
+    banded_dataset, card_line, check, community_dataset, cuda_ms, emit,
+)
+
 PREPARE_LIMIT_S = 5.0         # PERF.md section 2: prepare at 169,343 nodes
 BENCH_NNZ = 2_489_237         # the headline graph's edges at the bench's defaults
 KERNELS = ("ell_spmm", "banded_spmm", "rest_spmm")
-REPLACES = {
-    "ell_spmm": "ssrg_tpu/ops/pallas_spmm.py:47",
-    "banded_spmm": "ssrg_tpu/ops/pallas_banded.py:40",
-    "rest_spmm": "ssrg_tpu/ops/pallas_rest.py:56",
-}
 # (run, graph, spmm_engine, spmm_bf16, the kernel the run's path launches)
 LOCALITY_RUNS = (
     ("banded_f32", "banded", "reorder_banded", False, "banded_spmm"),
     ("banded_bf16", "banded", "reorder_banded", True, "banded_spmm"),
     ("tiled_bf16", "community", "reorder_tiled", True, "rest_spmm"),
 )
-
-
-def emit(obj) -> None:
-    print(json.dumps(obj), flush=True)
-
-
-def check(cond: bool, what: str) -> None:
-    if not cond:
-        raise RuntimeError(f"chip_smoke check failed: {what}")
-
-
-def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
-    """Mean milliseconds per call over ``iters`` calls, from CUDA events."""
-    import torch
-
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / iters
 
 
 def kernel_wrappers() -> dict:
@@ -375,364 +330,35 @@ def phase_native(rec: dict, packer_inputs: dict) -> None:
     emit(rec)
 
 
-def hold(name: str, out_k, out_p, tol) -> float:
-    """Check a kernel's output: finite, and within ``tol`` of its plain
-    version elementwise. Returns the largest absolute difference."""
+def phase_kernels() -> list:
+    """The ``kernels`` phase: ``tools/kernels.py``'s table with only the
+    libraries :func:`phase_build` built. Returns each step's summary."""
+    import importlib
+
     import torch
 
-    diff = (out_k - out_p).abs()
-    max_abs_err = float(diff.max()) if diff.numel() else 0.0
-    check(bool(torch.isfinite(out_k).all()), f"{name}: kernel output not finite")
-    check(bool((diff <= tol).all()), f"{name}: kernel vs plain beyond the sum-order bound "
-          f"(max abs err {max_abs_err})")
-    return max_abs_err
+    import kernels as table  # tools/kernels.py
+    from ssrg_torch.ops import _nvcc
+
+    args = argparse.Namespace(seed=SEED, parts="attention,scores")
+    summary = []
+    for key, kernel in table.KERNELS.items():
+        module = importlib.import_module(f"ssrg_torch.ops.{kernel.module}")
+        libs = {"source": _nvcc.library(module.NAME, module._declare)}
+        for case, steps in kernel.cases(args):
+            for rec in table.measure(key, kernel, module, libs, case, steps):
+                emit(rec)
+                summary.append({"kernel": key, "case": case, "step": rec["step"],
+                                **{k: rec[k] for k in ("ms", "plain_ms", "library_ms",
+                                                       "bound_ms", "bound_share")},
+                                **{k: rec[k]["source"] for k in ("max_abs_err",
+                                                                 "max_err_over_tolerance")}})
+            del steps
+            torch.cuda.empty_cache()
+    return summary
 
 
-def against_bound(name: str, rec: dict) -> dict:
-    """A timed record's share of its bound and the rate of device memory it
-    reaches (compulsory bytes over its time); a time below the bound means
-    the bound counts more bytes or operations than the kernel needs, and
-    fails the run."""
-    check(rec["ms"] >= rec["bound_ms"],
-          f"{name}: {rec['ms']} ms is below its bound of {rec['bound_ms']} ms")
-    rec["bound_share"] = rec["bound_ms"] / rec["ms"]
-    rec["achieved_gb_per_s"] = rec["compulsory_bytes"] / rec["ms"] / 1e6
-    return rec
-
-
-def bound(nbytes: int, flops: float, flops_per_s: float) -> dict:
-    """The least time the card could take for the work: the compulsory
-    bytes over device memory's rate or the operations over the peak rate of
-    their type, whichever is longer."""
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / flops_per_s * 1e3
-    return {"bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "bytes_ms": t_bytes, "operations_ms": t_ops,
-            "compulsory_bytes": nbytes, "flops": flops}
-
-
-def ell_case(name: str, cols, vals, x, timed: bool, tail=None) -> dict:
-    """Hold ``ell_spmm`` against ``ell_spmm_plain`` on card tensors.
-
-    Tolerance: the kernel (only the nonzero slots, fma in slot order) and
-    the plain version (every slot, one batched product) sum the same nonzero
-    products in a different order, so each is within ``W * u * sum|v * x|``
-    of the exact sum (u = 2^-24) and they differ by at most twice that,
-    elementwise."""
-    import torch
-
-    from ssrg_torch.ops.ell_spmm import TILE, ell_spmm, ell_spmm_plain
-
-    out_k = ell_spmm(cols, vals, x)
-    out_p = ell_spmm_plain(cols, vals, x)
-    torch.cuda.synchronize()
-    width = cols.shape[1]
-    magnitude = ell_spmm_plain(cols, vals.abs(), x.abs())
-    max_abs_err = hold(name, out_k, out_p, 2.0 * width * UNIT_ROUNDOFF * magnitude + 1e-30)
-    rec = {"phase": "kernels", "case": name, "kernel": "ell_spmm",
-           "rows": int(cols.shape[0]), "width": int(width), "n": int(x.shape[0]),
-           "f": int(x.shape[1]), "vec4": bool(x.shape[1] % 4 == 0 and x.data_ptr() % 16 == 0),
-           "zero_slots": int((vals == 0).sum()), "tile": TILE,
-           "max_abs_err": max_abs_err, "tolerance": "2*W*2^-24*sum|v*x| elementwise"}
-    if not timed:
-        return rec
-    # the bound counts the pack, x and out each moved once, and one multiply-add
-    # per F for each real (nonzero) slot: the padding slots are not work
-    real = vals != 0
-    counts = real.sum(dim=1)
-    nbytes = (cols.numel() * 4 + vals.numel() * 4 + x.numel() * 4
-              + out_k.numel() * 4)
-    flops = 2.0 * int(counts.sum()) * x.shape[1]
-    crow = torch.zeros(cols.shape[0] + 1, dtype=torch.int64, device=x.device)
-    crow[1:] = torch.cumsum(counts, 0)
-    csr = torch.sparse_csr_tensor(crow, cols[real].to(torch.int64), vals[real],
-                                  size=(cols.shape[0], x.shape[0]))
-    lib_err = float((torch.sparse.mm(csr, x) - out_p).abs().max())
-    rec.update({
-        "ms": cuda_ms(lambda: ell_spmm(cols, vals, x)),
-        "plain_ms": cuda_ms(lambda: ell_spmm_plain(cols, vals, x)),
-        "library_ms": cuda_ms(lambda: torch.sparse.mm(csr, x)),
-        "library": "torch.sparse.mm on the CSR of the pack's nonzero slots",
-        "library_max_abs_err": lib_err,
-        **bound(nbytes, flops, F32_FLOPS_PER_S),
-        "real_slots": int(counts.sum()), "slots": int(cols.numel()),
-        # the neighbour rows the kernel reads, one per real slot, from L2 or memory
-        "gather_bytes": int(counts.sum()) * x.shape[1] * 4,
-    })
-    rec["gather_gb_per_s"] = rec["gather_bytes"] / rec["ms"] / 1e6
-    if tail is not None:
-        rec["tail"] = tail_case(f"{name} tail", tail, x)
-    return against_bound(name, rec)
-
-
-def tail_case(name: str, tail, x) -> dict:
-    """A hybrid pack's COO tail on ``coo_accumulate``: one launch, held
-    against ``coo_accumulate_plain`` within ``2 (c + 1) u sum|v x|`` (c a
-    row's entries), timed beside it and ``torch.sparse.mm`` on the CSR of
-    the same entries, against its bound: the entries (row, column, value),
-    every x row and out row they touch, each moved once over 3.35 TB/s."""
-    import torch
-
-    from ssrg_torch.ops.coo_spmm import coo_accumulate, coo_accumulate_plain
-
-    row, col, val = tail.row, tail.col, tail.val
-    nnz = tail.nnz if tail.nnz is not None else tail.nnz_padded
-    if nnz == 0:
-        return {"kernel": "coo_accumulate", "entries": 0}
-    f = x.shape[1]
-    zeros = torch.zeros((tail.n_rows, f), dtype=torch.float32, device=x.device)
-    before = coo_accumulate.launches
-    out_k = tail.accumulate(zeros.clone(), x)
-    check(coo_accumulate.launches == before + 1, f"{name}: coo_accumulate did not launch once")
-    out_p = coo_accumulate_plain(row, col, val, x, zeros.clone(), nnz)
-    counts = torch.bincount(row[:nnz].long(), minlength=tail.n_rows)[:, None]
-    magnitude = coo_accumulate_plain(row, col, val.abs(), x.abs(), zeros.clone(), nnz)
-    max_abs_err = hold(name, out_k, out_p, 2.0 * (counts + 1) * UNIT_ROUNDOFF * magnitude + 1e-30)
-    del out_k, out_p, magnitude, counts
-    x_rows = int(torch.unique(col[:nnz]).numel())
-    out_rows = int(torch.unique(row[:nnz]).numel())
-    crow = torch.zeros(tail.n_rows + 1, dtype=torch.int64, device=x.device)
-    crow[1:] = torch.cumsum(torch.bincount(row[:nnz].long(), minlength=tail.n_rows), 0)
-    csr = torch.sparse_csr_tensor(crow, col[:nnz].long(), val[:nnz],
-                                  size=(tail.n_rows, x.shape[0]))
-    acc = zeros
-    rec = {"kernel": "coo_accumulate", "entries": nnz, "f": f, "x_rows": x_rows,
-           "out_rows": out_rows, "max_abs_err": max_abs_err,
-           "tolerance": "2*(c+1)*2^-24*sum|v*x| elementwise, c a row's entries",
-           "ms": cuda_ms(lambda: tail.accumulate(acc, x)),
-           "plain_ms": cuda_ms(lambda: coo_accumulate_plain(row, col, val, x, acc, nnz)),
-           "library_ms": cuda_ms(lambda: torch.sparse.mm(csr, x)),
-           "library": "torch.sparse.mm on the CSR of the same entries (no add into out)",
-           **bound(nnz * 12 + (x_rows + out_rows) * f * 4, 2.0 * nnz * f, F32_FLOPS_PER_S),
-           # the x rows the kernel reads, one per entry, from L2 or memory
-           "gather_bytes": nnz * f * 4}
-    rec["gather_gb_per_s"] = rec["gather_bytes"] / rec["ms"] / 1e6
-    return against_bound(name, rec)
-
-
-# (heads, head width) of the GAT cell's attention: its hidden layers, its last
-GAT_SHAPES = ((4, 128), (4, 47))
-GAT_SLOPE = 0.2
-
-
-def gat_case(name: str, edges, h: int, c: int, gen) -> dict:
-    """The four attention kernels of ``ops/gat_attention.py`` and the two
-    score kernels on the attention listing ``edges`` at ``h`` heads of
-    ``c``, random z, scores, weights and gradients: each step's kernel held
-    to its plain version on the same card tensors (the same inputs, so only
-    the order of the f32 sums and the exponent's rounding differ), timed
-    beside it against its bound: the listing, every ``[N, H]``, ``[H, C]``
-    and ``[N, H, C]`` operand and result moved once over 3.35 TB/s. Returns
-    each kernel's record (the score gradient's covers its two launches).
-
-    Bounds, elementwise, k a node's entries (the listing is symmetric) and
-    T = 16 + 2 max|a - m| in units of u = 2^-24 for one alpha or exponent
-    term (expf and the division, each path, and the exponent's argument
-    rounded once more where nvcc fuses it): the row maxima exact; the sums
-    ``(2k + T) u l``; the weighted sum ``(2k + T) u sum alpha |z|``; the row
-    dot ``2 (c + 1) u sum |g out|``; dz ``(2k + T) u sum alpha |g|``; both
-    scores' gradients ``(2 (c + k) + T + 6) u M``, M the sum of ``alpha
-    (sum |g z| + |delta|) leaky'``, which the plain backward pass gives on
-    the operands' absolute values. The scores ``2 (c + 1) u sum |z a|``; their
-    ``dz`` ``4 u (|ds_src a_src| + |ds_dst a_dst|)``; ``da`` against the plain
-    version in float64, ``(ceil(n / 4S) + 5 + P) u sum |ds z|`` (S the SMs, P
-    the partial rows, at least the kernel's blocks, each of 4 warps: a lane's
-    rows in order, then its block's warps, then the blocks)."""
-    import torch
-
-    from ssrg_torch.ops import gat_attention as ga
-
-    u, n, e, dev = UNIT_ROUNDOFF, edges.num_nodes, edges.nnz, edges.row.device
-    row, col, t_row, t_col = edges.row, edges.col, edges.t_row, edges.t_col
-    z = torch.randn((n, h, c), generator=gen).to(dev)
-    s_src = torch.randn((n, h), generator=gen).to(dev)
-    s_dst = torch.randn((n, h), generator=gen).to(dev)
-    g = torch.randn((n, h, c), generator=gen).to(dev)
-    k = torch.bincount(row.long(), minlength=n).double()[:, None]
-    check(torch.equal(torch.bincount(t_row.long(), minlength=n).double()[:, None], k),
-          f"{name}: the listing is not symmetric")
-    before = dict(ga.gat_attention.kernel_launches)
-    m_k, l_k = ga.softmax_stats(row, col, s_src, s_dst, e, GAT_SLOPE)
-    m, l = ga.softmax_stats_plain(row, col, s_src, s_dst, e, GAT_SLOPE)
-    check(torch.equal(m_k, m), f"{name}: the row maxima differ from the plain version's")
-    a_max = float((s_dst.abs().amax() + s_src.abs().amax() + m.abs().amax()))
-    t = 16.0 + 2.0 * a_max
-    err = {"gat_stats_kernel": hold(f"{name} stats", l_k, l,
-                                    ((2 * k + t) * u * l).float() + 1e-30)}
-    out_k = ga.aggregate(row, col, s_src, s_dst, m, l, z, e, GAT_SLOPE)
-    out = ga.aggregate_plain(row, col, s_src, s_dst, m, l, z, e, GAT_SLOPE)
-    mag = ga.aggregate_plain(row, col, s_src, s_dst, m, l, z.abs(), e, GAT_SLOPE)
-    err["gat_aggregate_kernel"] = hold(f"{name} aggregate", out_k, out,
-                                       ((2 * k[..., None] + t) * u * mag).float() + 1e-30)
-    del out_k, mag
-    q_k = ga.rowdot(g, out, s_dst, m, l)
-    q = ga.rowdot_plain(g, out, s_dst, m, l)
-    check(torch.equal(q_k[..., :3], q[..., :3]), f"{name}: rowdot's packed values differ")
-    err["gat_rowdot_kernel"] = hold(f"{name} rowdot", q_k[..., 3], q[..., 3],
-                                    2 * (c + 1) * u * (g * out).abs().sum(-1) + 1e-30)
-    del q_k
-    grads_k = ga.backward(t_row, t_col, q, s_src, z, g, e, GAT_SLOPE)
-    grads = ga.backward_plain(t_row, t_col, q, s_src, z, g, e, GAT_SLOPE)
-    q_abs = q.clone()
-    q_abs[..., 3] = -q[..., 3].abs()
-    mags = ga.backward_plain(t_row, t_col, q_abs, s_src, z.abs(), g.abs(), e, GAT_SLOPE)
-    tols = ((2 * k[..., None] + t) * u * mags[0],
-            (2 * (c + k) + t + 6) * u * mags[1], (2 * (c + k) + t + 6) * u * mags[2])
-    err["gat_backward_kernel"] = max(
-        hold(f"{name} backward {what}", got, want, tol.float() + 1e-30)
-        for what, got, want, tol in zip(("dz", "ds_src", "ds_dst"), grads_k, grads, tols))
-    del grads_k, grads, mags, tols, q_abs
-    a_src = torch.randn((1, h, c), generator=gen).to(dev)
-    a_dst = torch.randn((1, h, c), generator=gen).to(dev)
-    s_k = ga.scores(z, a_src, a_dst)
-    s_p = ga.scores_plain(z, a_src, a_dst)
-    err["gat_scores_kernel"] = max(
-        hold(f"{name} scores", got, want, 2 * (c + 1) * u * (z.abs() * a.abs()).sum(-1) + 1e-30)
-        for got, want, a in zip(s_k, s_p, (a_src, a_dst)))
-    del s_k, s_p
-    ds_src, ds_dst = s_src, s_dst  # any [N, H] values will do
-    grads_k = ga.score_grad(z, a_src, a_dst, ds_src, ds_dst)
-    dz_p = ga.score_grad_plain(z, a_src, a_dst, ds_src, ds_dst)[0]
-    f64 = [t.double() for t in (z, a_src, a_dst, ds_src, ds_dst)]
-    das = ga.score_grad_plain(*f64)[1:]
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    depth = -(-n // (4 * sms)) + 5 + ga._score_part_rows(dev)
-    da_tols = [depth * u * (ds[..., None].abs() * f64[0].abs()).sum(0).view_as(a) + 1e-30
-               for ds, a in ((f64[3], a_src), (f64[4], a_dst))]
-    err["gat_score_grad_kernel"] = max(
-        hold(f"{name} score dz", grads_k[0], dz_p,
-             4 * u * (ds_src[..., None].abs() * a_src.abs()
-                      + ds_dst[..., None].abs() * a_dst.abs()) + 1e-30),
-        *(hold(f"{name} score {what}", got.double(), want, tol)
-          for what, got, want, tol in zip(("da_src", "da_dst"), grads_k[1:], das, da_tols)))
-    again = ga.score_grad(z, a_src, a_dst, ds_src, ds_dst)
-    check(all(torch.equal(a, b) for a, b in zip(grads_k, again)),
-          f"{name}: the score gradient's bits differ between two runs")
-    del grads_k, again, dz_p, f64, das, da_tols
-    launched = {kk: v - before[kk] for kk, v in ga.gat_attention.kernel_launches.items()}
-    check(launched == {"gat_stats_kernel": 2, "gat_aggregate_kernel": 1,
-                       "gat_rowdot_kernel": 1, "gat_backward_kernel": 1,
-                       "gat_scores_kernel": 1, "gat_score_grad_kernel": 2,
-                       "gat_score_sum_kernel": 2},
-          f"{name}: the steps launched {launched}")
-    f32, nh, nhc = 4, n * h, n * h * c
-    timed = {  # kernel: (step, its plain version, compulsory bytes, operations)
-        "gat_stats_kernel": (
-            lambda: ga.softmax_stats(row, col, s_src, s_dst, e, GAT_SLOPE),
-            lambda: ga.softmax_stats_plain(row, col, s_src, s_dst, e, GAT_SLOPE),
-            f32 * (4 * e + 7 * nh), 7.0 * e * h),
-        "gat_aggregate_kernel": (
-            lambda: ga.aggregate(row, col, s_src, s_dst, m, l, z, e, GAT_SLOPE),
-            lambda: ga.aggregate_plain(row, col, s_src, s_dst, m, l, z, e, GAT_SLOPE),
-            f32 * (2 * e + 2 * nhc + 4 * nh), 2.0 * e * h * c),
-        "gat_rowdot_kernel": (
-            lambda: ga.rowdot(g, out, s_dst, m, l),
-            lambda: ga.rowdot_plain(g, out, s_dst, m, l),
-            f32 * (2 * nhc + 7 * nh), 2.0 * nhc),
-        "gat_backward_kernel": (
-            lambda: ga.backward(t_row, t_col, q, s_src, z, g, e, GAT_SLOPE),
-            lambda: ga.backward_plain(t_row, t_col, q, s_src, z, g, e, GAT_SLOPE),
-            f32 * (2 * e + 3 * nhc + 7 * nh), 4.0 * e * h * c),
-        "gat_scores_kernel": (
-            lambda: ga.scores(z, a_src, a_dst),
-            lambda: ga.scores_plain(z, a_src, a_dst),
-            f32 * (nhc + 2 * h * c + 2 * nh), 4.0 * nhc),
-        "gat_score_grad_kernel": (  # both launches: the gradient, the sum of da
-            lambda: ga.score_grad(z, a_src, a_dst, ds_src, ds_dst),
-            lambda: ga.score_grad_plain(z, a_src, a_dst, ds_src, ds_dst),
-            f32 * (2 * nhc + 2 * nh + 4 * h * c), 8.0 * nhc),
-    }
-    recs = {}
-    for kernel, (step, plain, nbytes, flops) in timed.items():
-        rec = {"phase": "kernels", "case": f"{name} {kernel}", "kernel": kernel,
-               "nodes": n, "entries": e, "heads": h, "c": c,
-               "max_row_entries": int(k.max()), "vec4": c % 4 == 0,
-               "max_abs_err": err[kernel], "tolerance": "elementwise sum-order bound "
-               "(gat_case's docstring), T = %.2f" % t,
-               "ms": cuda_ms(step), "plain_ms": cuda_ms(plain, iters=5),
-               **bound(nbytes, flops, F32_FLOPS_PER_S)}
-        recs[kernel] = against_bound(f"{name} {kernel}", rec)
-        emit(rec)
-    return recs
-
-
-def phase_gat(adj) -> dict:
-    """The attention kernels on the attention listing of ``adj`` (the
-    power-law graph, with one self-loop a node) at each of
-    ``GAT_SHAPES``: each kernel's records by shape."""
-    import torch
-
-    from ssrg_torch.models.baselines import EdgeList
-
-    edges = EdgeList.attention(adj).to("cuda")
-    gen = torch.Generator().manual_seed(SEED)
-    recs = {f"h{h}_c{c}": gat_case(f"gat powerlaw h{h} c{c}", edges, h, c, gen)
-            for h, c in GAT_SHAPES}
-    del edges
-    torch.cuda.empty_cache()
-    return recs
-
-
-def phase_kernels(headline, powerlaw) -> dict:
-    """Every ported kernel against its plain version; returns the headline
-    record of each kernel."""
-    import torch
-
-    dev = torch.device("cuda")
-    recs = {}
-    for name, (hyb, x) in (("headline", headline), ("powerlaw", powerlaw)):
-        rec = ell_case(name, hyb.ell.cols, hyb.ell.vals, x, timed=True, tail=hyb.tail)
-        emit(rec)
-        recs[name] = rec
-    # the headline pack with every column taken modulo L2_ROWS: x is 8.4 MB and
-    # stays in L2, so this measures the gather rate when nothing misses it
-    hyb, x = headline
-    emit(ell_case("headline_l2_resident", torch.remainder(hyb.ell.cols, L2_ROWS),
-                  hyb.ell.vals, x[:L2_ROWS], timed=True))
-    gen = torch.Generator().manual_seed(SEED)
-    ragged = [  # (name, rows, n, width, f, misalign, slots): slots "holes" zeroes a
-        # third of the slots and pads each row's end, "all_zero" every slot,
-        # "full" none
-        ("f50_scalar", 1003, 777, 7, 50, False, None),
-        ("width1", 1003, 512, 1, 128, False, None),
-        ("width40_f300", 2001, 1500, 40, 300, False, None),
-        ("f48_misaligned", 999, 600, 9, 48, True, None),
-        ("holes_w24_f128", 2001, 1500, 24, 128, False, "holes"),
-        ("all_zero", 513, 300, 16, 128, False, "all_zero"),
-        ("full_w64", 1003, 1500, 64, 128, False, "full"),
-        ("f4", 1003, 700, 5, 4, False, "holes"),
-        ("f16", 1003, 700, 12, 16, False, "holes"),
-        ("f20", 1003, 700, 12, 20, False, "holes"),
-        ("f130_w33", 1003, 700, 33, 130, False, "holes"),
-        ("f300_holes", 1003, 700, 20, 300, False, "holes"),
-        ("f128_misaligned_holes", 999, 600, 24, 128, True, "holes"),
-    ]
-    for name, rows, n, width, f, misalign, slots in ragged:
-        cols = torch.randint(0, n, (rows, width), generator=gen, dtype=torch.int32)
-        vals = torch.randn(rows, width, generator=gen)
-        if slots == "full":
-            vals = 0.1 + 0.9 * torch.rand(rows, width, generator=gen)
-        elif slots == "all_zero":
-            vals.zero_()
-        elif slots == "holes":
-            vals[torch.rand(rows, width, generator=gen) < 1 / 3] = 0.0
-            ends = torch.randint(0, width + 1, (rows, 1), generator=gen)
-            pad = torch.arange(width)[None, :] >= ends
-            cols[pad], vals[pad] = 0, 0.0
-        empty = torch.rand(rows, generator=gen) < 0.1   # rows with no neighbour
-        cols[empty], vals[empty] = 0, 0.0
-        x_host = torch.randn(n, f, generator=gen)
-        if misalign:  # contiguous, but 4 bytes off 16-byte alignment
-            x = torch.empty(n * f + 1, device=dev)[1:].view(n, f).copy_(x_host)
-            check(x.data_ptr() % 16 != 0, "misaligned case is aligned")
-        else:
-            x = x_host.to(dev)
-        emit(ell_case(name, cols.to(dev), vals.to(dev), x, timed=False))
-    return recs
-
-
-def phase_slice(ds, adj_norm) -> dict:
+def phase_slice(ds, adj_norm) -> None:
     import torch
 
     from ssrg_torch.configs.config import TrainingConfig
@@ -781,7 +407,6 @@ def phase_slice(ds, adj_norm) -> dict:
           "engine": "auto", "prepare_s": prepare_s, "prepare_launches": launches_prepare,
           "hop_k_max_abs_err_vs_f64": hop_err, "head_max_abs_err_vs_host": head_err,
           "requests": request_times(requests), "peak_mem_bytes": peak})
-    return launches_prepare
 
 
 def phase_layers(ds, prop_steps: int) -> None:
@@ -811,43 +436,11 @@ def phase_layers(ds, prop_steps: int) -> None:
 # --- the locality tier --------------------------------------------------------
 
 
-def banded_dataset():
-    """Every node gets ``BANDED_NEIGHBOURS`` neighbours at offsets uniform in
-    [-BANDED_REACH, BANDED_REACH] (clipped to the id range), unit weights,
-    symmetrized without self-loops; the ids are shuffled, so RCM has to find
-    the band again. F = 128 normal features, 40 labels."""
-    from ssrg_torch.data.graph import Graph
-
-    rng = np.random.default_rng(SEED)
-    n = NUM_NODES
-    r = np.repeat(np.arange(n), BANDED_NEIGHBOURS)
-    c = np.clip(r + rng.integers(-BANDED_REACH, BANDED_REACH + 1, r.shape), 0, n - 1)
-    shuf = rng.permutation(n)
-    x = rng.normal(size=(n, NUM_FEATURES)).astype(np.float32)
-    y = rng.integers(0, NUM_CLASSES, n)
-    return Graph(shuf[r], shuf[c], np.ones(r.size, np.float32), n, "UUU", x=x, y=y)
-
-
-def community_dataset():
-    """``community_graph(169_343)`` (512-node communities, ids shuffled)
-    with F = 128 normal features and 40 labels from numpy seed 0."""
-    from ssrg_torch.data.graph import Graph
-    from ssrg_torch.data.synthetic import community_graph
-
-    rng = np.random.default_rng(SEED)
-    x = rng.normal(size=(NUM_NODES, NUM_FEATURES)).astype(np.float32)
-    y = rng.integers(0, NUM_CLASSES, NUM_NODES)
-    g = Graph(np.zeros(0), np.zeros(0), np.zeros(0), NUM_NODES, "UUU", x=x, y=y)
-    g.adj = community_graph(NUM_NODES, seed=SEED)
-    return g
-
-
 def locality_layers(run: str, ds, engine: str, bf16: bool, prop_steps: int):
     """The layers of ``prepare``'s reorder path, each timed alone: host
     normalization, the permutation, renumbering the graph and features, the
     host pack, the copy to the card, the K hops (CUDA events) and the
-    un-permutation of the hop stack. Returns the record, the pack on the card
-    and the renumbered features there."""
+    un-permutation of the hop stack: the record."""
     import torch
 
     from ssrg_torch.ops.normalize import sym_norm
@@ -904,275 +497,7 @@ def locality_layers(run: str, ds, engine: str, bf16: bool, prop_steps: int):
                    rest_chunks=rest.num_chunks, rest_chunk=rest.chunk,
                    rest_row_blocks=rest.nb, rest_row_block=rest.row_block,
                    rest_gather_bf16=rest.gather_bf16)
-    return rec, pack_dev, x_dev
-
-
-# |kernel - plain| <= factor * c * 2^-24 * sum|a * x| for a row of c nonzero
-# entries, by path (banded_case has the derivations)
-BANDED_TOLERANCE = {"stream": 2.0, "tensor_core": 7.0}
-
-
-def banded_case(name: str, blocks, los, x, round_x: bool, timed: bool) -> dict:
-    """Hold ``banded_spmm`` against ``banded_spmm_plain`` on card tensors,
-    and check that the product took its path: bf16 blocks the tensor cores,
-    f32 blocks the stream kernel.
-
-    Tolerance, for a row of c nonzero entries, S = sum|a * x| (u = 2^-24;
-    both versions take the same products, and a bf16 x bf16 product is exact
-    in f32). Stream path: it sums the nonzero products in another order than
-    the plain version, each within ``c * u * S`` of the exact sum, so they
-    differ by at most ``2 * c * u * S``. Tensor-core path (the source note of
-    ``csrc/banded_spmm.cu``): on Fasi et al.'s model of an MMA's sum (PeerJ
-    CS 2021, measured on Volta to Ampere, assumed here for Hopper's wgmma)
-    an MMA aligns its terms to the largest and truncates, so a group of g
-    nonzero products loses less than ``(g + 2) * 2 u * S``, a zero group
-    nothing, the row less than ``3 c * 2 u * S``; with the plain version's
-    ``c * u * S``: ``7 * c * u * S``. Elementwise. The record's
-    ``max_err_over_tolerance``, the card's observed error over this bound, is
-    what backs the assumption."""
-    import torch
-
-    from ssrg_torch.ops.banded_spmm import banded_spmm, banded_spmm_plain, path
-
-    nb, rb, w = blocks.shape
-    f = x.shape[1]
-    bf16 = blocks.dtype == torch.bfloat16
-    chosen = path(blocks)
-    check(chosen == ("tensor_core" if bf16 else "stream"),
-          f"{name}: a {blocks.dtype} pack takes the {chosen} path")
-    before = banded_paths()
-    out_k = banded_spmm(blocks, los, x, round_x)
-    out_p = banded_spmm_plain(blocks, los, x, round_x)
-    torch.cuda.synchronize()
-    after = banded_paths()
-    check(after[chosen] == before[chosen] + 1 and sum(after.values()) == sum(before.values()) + 1,
-          f"{name}: launches by path went from {before} to {after}, not one on {chosen}")
-    counts = (blocks != 0).sum(dim=2).reshape(-1)          # nonzeros of each output row
-    magnitude = banded_spmm_plain(blocks.abs(), los, x.abs(), round_x)
-    tol = BANDED_TOLERANCE[chosen] * counts[:, None] * UNIT_ROUNDOFF * magnitude + 1e-30
-    del magnitude
-    max_abs_err = hold(name, out_k, out_p, tol)
-    err_over_tol = float(((out_k - out_p).abs() / tol).max()) if out_k.numel() else 0.0
-    del tol
-    nonzeros = int(counts.sum())
-    rec = {"phase": "kernels", "case": name, "kernel": "banded_spmm", "path": chosen,
-           "row_blocks": nb, "row_block": rb, "window": w, "n": int(x.shape[0]), "f": f,
-           "blocks_dtype": str(blocks.dtype), "round_x": bool(round_x or bf16),
-           "window_past_n": int(los.max()) + w > x.shape[0],
-           "empty_row_blocks": int(counts.reshape(nb, rb).sum(dim=1).eq(0).sum()),
-           "nonzeros": nonzeros, "longest_row": int(counts.max()),
-           "max_abs_err": max_abs_err, "max_err_over_tolerance": err_over_tol,
-           "tolerance": f"{BANDED_TOLERANCE[chosen]:g}*c*2^-24*sum|a*x| elementwise, "
-                        "c nonzeros of the row",
-           "x_aligned": x.data_ptr() % 16 == 0, "blocks_aligned": blocks.data_ptr() % 16 == 0}
-    if not timed:
-        return rec
-    # the bound: the blocks, los, x and out each moved once; one multiply-add
-    # per feature for each nonzero entry (a zero entry needs no work) at the
-    # peak rate of the blocks' type
-    nbytes = (blocks.numel() * blocks.element_size() + los.numel() * 4 + x.numel() * 4
-              + out_k.numel() * 4)
-    flops = 2.0 * nonzeros * f
-    # the yardstick: one torch.bmm of the blocks with their windows, gathered
-    # beforehand (the gather is not in its time)
-    need = int(los.max()) + w
-    xp = torch.cat([x, x.new_zeros((max(need - x.shape[0], 0), f))])
-    windows = xp[los.long()[:, None] + torch.arange(w, device=x.device)]
-    del xp
-    if bf16:
-        windows = windows.bfloat16()
-    elif round_x:
-        windows = windows.bfloat16().float()
-    lib_err = float((torch.bmm(blocks, windows).float().reshape(-1, f) - out_p).abs().max())
-    rec.update({
-        "ms": cuda_ms(lambda: banded_spmm(blocks, los, x, round_x)),
-        "plain_ms": cuda_ms(lambda: banded_spmm_plain(blocks, los, x, round_x), iters=5),
-        "library_ms": cuda_ms(lambda: torch.bmm(blocks, windows)),
-        "library": f"torch.bmm in {blocks.dtype} over windows gathered beforehand "
-                   "(excludes the gather)",
-        "library_max_abs_err": lib_err,
-        **bound(nbytes, flops, BF16_FLOPS_PER_S if bf16 else F32_FLOPS_PER_S),
-        "dense_flops": 2.0 * nb * rb * w * f,
-    })
-    # the dense product's rate (the tensor-core path multiplies every entry)
-    rec["dense_tflops_per_s"] = rec["dense_flops"] / rec["ms"] / 1e9
-    return against_bound(name, rec)
-
-
-def rest_case(name: str, pack, x, timed: bool) -> dict:
-    """Hold ``rest_spmm`` against ``rest_spmm_plain`` on card tensors.
-
-    Tolerance: both take the same terms for a row (with ``gather_bf16`` both
-    round the same operands and products) and sum them in another order,
-    the plain version's ``index_add_`` in no fixed one; for a row of c real
-    entries each is within ``c * u * sum|term|`` of the exact sum, so they
-    differ by at most twice that, elementwise."""
-    import torch
-
-    from ssrg_torch.ops.rest_spmm import rest_spmm, rest_spmm_plain
-
-    rp, re, cols, vals = pack.row_ptr, pack.row_end, pack.cols, pack.vals
-    bf16 = pack.gather_bf16
-    out_k = rest_spmm(rp, re, cols, vals, x, bf16)
-    out_p = rest_spmm_plain(rp, re, cols, vals, x, bf16)
-    torch.cuda.synchronize()
-    n_out, f = rp.shape[0] - 1, x.shape[1]
-    counts = re - rp[:-1]                                  # real entries of each row
-    magnitude = rest_spmm_plain(rp, re, cols, vals.abs(), x.abs(), bf16)
-    max_abs_err = hold(name, out_k, out_p,
-                       2.0 * counts[:, None] * UNIT_ROUNDOFF * magnitude + 1e-30)
-    del magnitude
-    n_real = int(counts.sum())
-    rec = {"phase": "kernels", "case": name, "kernel": "rest_spmm", "rows": n_out,
-           "n": int(x.shape[0]), "f": f, "chunks": pack.num_chunks, "chunk": pack.chunk,
-           "row_block": pack.row_block, "real_entries": n_real,
-           "pad_entries": int(rp[-1]) - n_real,
-           "longest_row": int(counts.max()), "edge_free_rows": int((counts == 0).sum()),
-           "gather_bf16": bool(bf16), "max_abs_err": max_abs_err,
-           "tolerance": "2*c*2^-24*sum|term| elementwise, c real entries of the row"}
-    if not timed:
-        return rec
-    # the bound: the layout (cols, vals and one row boundary array, row_ptr), x
-    # and out each moved once; one multiply-add per feature for each real entry.
-    # row_end is the kernel's own shortcut past the pads, not needed by the
-    # function, so it is not counted.
-    nbytes = (rp.numel() * 8 + cols.numel() * 4 + vals.numel() * 4
-              + x.numel() * 4 + out_p.numel() * 4)
-    flops = 2.0 * n_real * f
-    end = int(rp[-1])
-    row_of = torch.repeat_interleave(torch.arange(n_out, device=x.device), rp.diff(),
-                                     output_size=end)
-    real = torch.arange(end, device=x.device) < re[row_of]
-    crow = torch.zeros(n_out + 1, dtype=torch.int64, device=x.device)
-    crow[1:] = torch.cumsum(counts, 0)
-    csr = torch.sparse_csr_tensor(crow, cols.reshape(-1)[:end][real].long(),
-                                  vals.reshape(-1)[:end][real], size=(n_out, x.shape[0]))
-    lib_err = float((torch.sparse.mm(csr, x) - out_p).abs().max())
-    rec.update({
-        "ms": cuda_ms(lambda: rest_spmm(rp, re, cols, vals, x, bf16), iters=50, warmup=5),
-        "plain_ms": cuda_ms(lambda: rest_spmm_plain(rp, re, cols, vals, x, bf16)),
-        "library_ms": cuda_ms(lambda: torch.sparse.mm(csr, x), iters=50, warmup=5),
-        "library": "torch.sparse.mm in f32 on the CSR of the real entries",
-        "library_max_abs_err": lib_err,
-        **bound(nbytes, flops, F32_FLOPS_PER_S),
-        "gather_bytes": n_real * f * 4,
-    })
-    # the neighbour rows the kernel reads, each once per edge, from L2 or memory
-    rec["gather_gb_per_s"] = rec["gather_bytes"] / rec["ms"] / 1e6
-    return against_bound(name, rec)
-
-
-def banded_ragged_cases() -> list:
-    """Small banded packs for the kernel's edges: ``(name, blocks, los, x,
-    round_x)`` on the card."""
-    import scipy.sparse as sp
-    import torch
-
-    from ssrg_torch.ops.sparse import build_banded
-
-    gen = torch.Generator().manual_seed(SEED)
-    rng = np.random.default_rng(SEED)
-    # a real pack: N = 5,000 is not a multiple of the 256-row block, the last
-    # window runs past N, F = 50
-    n = 5000
-    r = np.repeat(np.arange(n), BANDED_NEIGHBOURS)
-    c = np.clip(r + rng.integers(-200, 201, r.shape), 0, n - 1)
-    adj = sp.csr_matrix((rng.uniform(0.1, 1.0, r.size).astype(np.float32), (r, c)),
-                        shape=(n, n))
-    pack = build_banded(adj, row_block=256)
-    check(int(pack.los.max()) + pack.window > n, "the real ragged pack has no window past N")
-    cases = [("real_n5000_f50", pack.blocks, pack.los, torch.randn(n, 50, generator=gen),
-              False)]
-
-    def synthetic(nb, rb, w, n, f, bf16, empty, dense_rows=False, dense_block=False):
-        blocks = torch.randn(nb, rb, w, generator=gen)
-        blocks[torch.rand(nb, rb, w, generator=gen) < 0.7] = 0.0
-        blocks[list(empty)] = 0.0                          # empty row blocks
-        if dense_rows:  # every entry nonzero
-            blocks[0, :3] = 0.1 + 0.9 * torch.rand(3, w, generator=gen)
-        if dense_block:  # every entry of block 0 nonzero
-            blocks[0] = 0.1 + 0.9 * torch.rand(rb, w, generator=gen)
-        los = torch.randint(0, max(n - w // 2, 1), (nb,), generator=gen) // 16 * 16
-        los[-1] = (n - 8) // 16 * 16                       # runs past N
-        return (blocks.bfloat16() if bf16 else blocks, los.int(),
-                torch.randn(n, f, generator=gen))
-
-    cases += [
-        ("empty_blocks_past_n", *synthetic(6, 128, 256, 700, 64, False, (1, 4)), False),
-        ("bf16_rb512_f130", *synthetic(3, 512, 384, 1500, 130, True, ()), True),
-        ("rb100_w200_window_bf16", *synthetic(5, 100, 200, 900, 32, False, (0,)), True),
-        ("dense_rows_w2816", *synthetic(3, 16, 2816, 4000, 128, False, (), True), False),
-        ("dense_rows_bf16_w3200", *synthetic(3, 16, 3200, 4000, 128, True, (), True), True),
-        ("odd_w37_f32", *synthetic(4, 24, 37, 120, 16, False, (1,)), False),
-        ("odd_w45_bf16", *synthetic(3, 40, 45, 100, 20, True, ()), True),
-        ("bf16_f128_past_n", *synthetic(3, 512, 640, 1500, 128, True, ()), True),
-        # the tensor-core path's tile edges (128 rows; 128 features and 128
-        # window rows a stage for F <= 128, 256 and 64 above): rb not a multiple
-        # of the row tile, W not a multiple of the stage or of 8, F past a
-        # feature tile or below 16, a dense block
-        ("tc_rb100_w63_f100", *synthetic(3, 100, 63, 300, 100, True, (1,)), False),
-        ("tc_rb200_w65_f136", *synthetic(3, 200, 65, 500, 136, True, ()), True),
-        ("tc_w1040_f8", *synthetic(3, 100, 1040, 1300, 8, True, ()), False),
-        ("tc_rb200_f256", *synthetic(3, 200, 256, 700, 256, True, ()), False),
-        ("tc_f1024", *synthetic(2, 64, 128, 400, 1024, True, ()), False),
-        ("tc_rb100_w130_f300", *synthetic(3, 100, 130, 500, 300, True, ()), False),
-        ("tc_f4", *synthetic(3, 128, 96, 300, 4, True, (1,)), False),
-        ("tc_dense_block", *synthetic(2, 130, 192, 500, 128, True, (), dense_block=True), False),
-    ]
-    out = [(name, b.cuda(), lo.cuda(), x.cuda(), rx) for name, b, lo, x, rx in cases]
-
-    def misaligned(t):  # a contiguous copy one element past a 16-byte boundary
-        buf = torch.empty(t.numel() + 1, dtype=t.dtype, device="cuda")
-        view = buf[1:].view(t.shape)
-        view.copy_(t)
-        return view
-
-    blocks, los, x = synthetic(3, 64, 128, 300, 36, True, (1,))
-    out.append(("tc_misaligned_pack_and_x", misaligned(blocks), los.cuda(), misaligned(x), False))
-    return out
-
-
-def rest_ragged_cases() -> list:
-    """Small rest layouts (row blocks and chunks of 1,024, as the tiled
-    engine builds them) for the kernel's edges: ``(name, pack, x)`` on the
-    card."""
-    import scipy.sparse as sp
-    import torch
-
-    from ssrg_torch.ops.pallas_rest import build_rest_segmented
-
-    gen = torch.Generator().manual_seed(SEED)
-    rng = np.random.default_rng(SEED)
-
-    def layout(r, c, n, m, bf16):
-        adj = sp.csr_matrix((rng.uniform(0.1, 1.0, r.size).astype(np.float32), (r, c)),
-                            shape=(n, m))
-        adj.sum_duplicates()
-        return build_rest_segmented(adj, row_block=1024, chunk=1024, gather_bf16=bf16,
-                                    device="cuda")
-
-    r = rng.integers(0, 4096, 12_000)
-    r = r[(r < 1024) | (r >= 2048)]                        # rows 1024-2047: no edge
-    # rows of 1-2 entries, none on each 1,024-row block's last row, whose
-    # block still ends in pads
-    counts = 1 + np.arange(4096) % 2
-    counts[1023::1024] = 0
-    short_r = np.repeat(np.arange(4096), counts)
-    long_r = np.concatenate([rng.integers(0, 3000, 6000), np.full(3000, 17)])
-    long_c = np.concatenate([rng.integers(0, 3000, 6000), np.arange(3000)])
-    cases = [
-        ("f50", layout(rng.integers(0, 5000, 15_000), rng.integers(0, 5000, 15_000),
-                       5000, 5000, False), 50),
-        ("edge_free_block_bf16", layout(r, rng.integers(0, 4096, r.size), 4096, 4096, True),
-         64),
-        ("row_across_chunks", layout(long_r, long_c, 3000, 3000, False), 128),
-        ("rectangular_bf16", layout(rng.integers(0, 3000, 9000), rng.integers(0, 7000, 9000),
-                                    3000, 7000, True), 96),
-        ("f128_pad_only_last_rows", layout(short_r, rng.integers(0, 5000, short_r.size),
-                                           4096, 5000, False), 128),
-    ]
-    return [(name, pack.to("cuda"), torch.randn(pack.n_cols, f, generator=gen).cuda())
-            for name, pack, f in cases]
+    return rec
 
 
 class WarningLog(logging.Handler):
@@ -1186,7 +511,7 @@ class WarningLog(logging.Handler):
         self.messages.append(record.getMessage())
 
 
-def locality_slice(run: str, ds, engine: str, bf16: bool, kernel: str) -> int:
+def locality_slice(run: str, ds, engine: str, bf16: bool, kernel: str) -> None:
     """GAMLP through ``Predictor`` with ``spmm_engine=engine`` on the card.
 
     Checks: ``prepare`` launched the path's kernel K times and no other
@@ -1196,8 +521,7 @@ def locality_slice(run: str, ds, engine: str, bf16: bool, kernel: str) -> int:
     and, in the rest, the products to bf16, 2^-9 relative each, at most
     three times a term); the requests; and, for the f32 banded run, the
     logits of a hybrid ``Predictor`` with the same weights within 1e-4
-    relative, which shows the hops went back to their own node ids. Returns
-    the path kernel's launches in ``prepare``."""
+    relative, which shows the hops went back to their own node ids."""
     import torch
 
     from ssrg_torch.configs.config import TrainingConfig
@@ -1274,14 +598,11 @@ def locality_slice(run: str, ds, engine: str, bf16: bool, kernel: str) -> int:
         del hybrid
     emit(rec)
     torch.cuda.empty_cache()
-    return launches[kernel]
 
 
-def phase_locality(prop_steps: int):
-    """The locality tier: layers, kernel cases at the path's shapes and on
-    ragged packs, and the three ``Predictor`` runs. Returns the timed record
-    of each new kernel and its launches on its path, then the banded
-    kernel's timed record and launches of each path by path name."""
+def phase_locality(prop_steps: int) -> None:
+    """The locality tier: the layers of each run's reorder path, then the
+    three ``Predictor`` runs."""
     import torch
 
     t0 = time.perf_counter()
@@ -1289,40 +610,11 @@ def phase_locality(prop_steps: int):
     emit({"phase": "locality_data", "host_s": time.perf_counter() - t0,
           "banded_edges": int(graphs["banded"].adj.nnz),
           "community_edges": int(graphs["community"].adj.nnz)})
-
-    packs = {}
     for run, graph, engine, bf16, _ in LOCALITY_RUNS:
-        rec, pack, x = locality_layers(run, graphs[graph], engine, bf16, prop_steps)
-        emit(rec)
-        packs[run] = (pack, x)
-    recs = {}
-    for run in ("banded_f32", "banded_bf16"):
-        pack, x = packs.pop(run)
-        recs[run] = banded_case(f"{run}_pack", pack.blocks, pack.los, x, pack.window_bf16,
-                                timed=True)
-        emit(recs[run])
-        del pack, x
-    pack, x = packs.pop("tiled_bf16")
-    for bf16 in (True, False):
-        run = f"rest_{'bf16' if bf16 else 'f32'}"
-        recs[run] = rest_case(f"community_{run}", dataclasses.replace(pack.rest, gather_bf16=bf16),
-                              x, timed=True)
-        emit(recs[run])
-    del pack, x
-    torch.cuda.empty_cache()
-    for name, blocks, los, x, round_x in banded_ragged_cases():
-        emit(banded_case(name, blocks, los, x, round_x, timed=False))
-    for name, pack, x in rest_ragged_cases():
-        emit(rest_case(name, pack, x, timed=False))
-    torch.cuda.empty_cache()
-
-    launches = {}
+        emit(locality_layers(run, graphs[graph], engine, bf16, prop_steps))
+        torch.cuda.empty_cache()
     for run, graph, engine, bf16, kernel in LOCALITY_RUNS:
-        launches[run] = locality_slice(run, graphs[graph], engine, bf16, kernel)
-    return ({"banded_spmm": recs["banded_f32"], "rest_spmm": recs["rest_bf16"]},
-            {"banded_spmm": launches["banded_f32"], "rest_spmm": launches["tiled_bf16"]},
-            {"stream": (recs["banded_f32"], launches["banded_f32"]),
-             "tensor_core": (recs["banded_bf16"], launches["banded_bf16"])})
+        locality_slice(run, graphs[graph], engine, bf16, kernel)
 
 
 # --- the training slice -------------------------------------------------------
@@ -1331,10 +623,6 @@ TRAIN_EPOCHS = 5
 # a restored checkpoint's logits against the module's kept state on the same
 # inputs: the same float32 operations, so rounding-level at most
 CKPT_TOL = 1e-5
-# planetoid_like at ogbn-arxiv's node count, width, classes and split sizes
-TRAIN_GRAPH = dict(num_node=NUM_NODES, num_classes=NUM_CLASSES, num_features=NUM_FEATURES,
-                   train_per_class=2_273, num_val=29_799, num_test=48_603, p_in=1e-3,
-                   p_out=1e-5, seed=SEED)
 
 
 def time_epochs(task, attention: bool = False) -> dict:
@@ -1669,60 +957,9 @@ def train_gcn(ds, adj_norm, trace_dir: str) -> dict:
     return rec
 
 
-def function_gradient_cases(ds, adj_norm) -> dict:
-    """The ELL autograd ``Function`` against autograd through the plain
-    version, on the GCN's symmetric pack and on the pack of
-    ``sym_norm(r=0.3)`` (not symmetric: its backward runs on a pack of its
-    own), at F = 256 and F = 40: x's gradient within ``2*(c+1)*u*(|A|^T
-    |g|)``, c the most terms of a row or column. Then each pack the
-    backward runs on timed through :func:`ell_case` (kernel, plain,
-    ``torch.sparse.mm``, bound), with ``g`` for x, and the whole forward and
-    backward of the ``Function`` by CUDA events. Returns the timed records
-    by name."""
-    import torch
-
-    from ssrg_torch.ops.normalize import sym_norm
-    from ssrg_torch.ops.sparse import differentiable_adjacency
-
-    dev = torch.device("cuda")
-    gen = torch.Generator().manual_seed(SEED)
-    recs = {}
-    for name, r, a in (("symmetric", 0.5, adj_norm), ("r0.3", 0.3, sym_norm(ds.adj, 0.3))):
-        dadj = differentiable_adjacency(a, "hybrid", device=dev)
-        check(dadj.symmetric == (r == 0.5), f"{name}: transposed-pack reuse is {dadj.symmetric}")
-        c = max_terms(a)
-        for f in (256, 40):
-            x0 = torch.randn(NUM_NODES, f, generator=gen).to(dev)
-            g = torch.randn(NUM_NODES, f, generator=gen).to(dev)
-            x = x0.clone().requires_grad_()
-            dadj.spmm(x).backward(g)
-            x_plain = x0.clone().requires_grad_()
-            plain_hybrid_spmm(dadj.fwd, x_plain).backward(g)
-            torch.cuda.synchronize()
-            with torch.no_grad():
-                mag = plain_hybrid_spmm(dadj.bwd, g.abs())   # weights >= 0
-            max_abs_err = hold(f"function_{name}_f{f}", x.grad, x_plain.grad,
-                               2.0 * (c + 1) * UNIT_ROUNDOFF * mag + 1e-30)
-            bwd = dadj.bwd
-            case = f"train_{name}_bwd_f{f}"
-            rec = ell_case(case, bwd.ell.cols, bwd.ell.vals, g, timed=True, tail=bwd.tail)
-            xr = x0.clone().requires_grad_()
-            rec.update({"function_grad_max_abs_err": max_abs_err, "terms_c": c,
-                        "symmetric": dadj.symmetric,
-                        "function_fwd_bwd_ms": cuda_ms(lambda: dadj.spmm(xr).backward(g),
-                                                       iters=10)})
-            emit(rec)
-            recs[case] = rec
-            del x, x_plain, xr, mag
-        del dadj
-        torch.cuda.empty_cache()
-    return recs
-
-
-def phase_train(trace_root: str) -> dict:
-    """The training slice on one graph: GAMLP, the GCN (three of its epochs
-    traced into ``trace_root``) and the ``Function`` cases. Returns the
-    launches of each run and the timed records."""
+def phase_train(trace_root: str) -> None:
+    """The training slice on one graph: GAMLP and the GCN (three of its
+    epochs traced into ``trace_root``)."""
     import torch
 
     from ssrg_torch.data.synthetic import planetoid_like
@@ -1745,20 +982,14 @@ def phase_train(trace_root: str) -> dict:
           "symmetric": bool((adj_norm != adj_norm.T).nnz == 0)})
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
-        gamlp = train_gamlp(ds, os.path.join(tmp, "gamlp.ckpt"))
+        train_gamlp(ds, os.path.join(tmp, "gamlp.ckpt"))
     torch.cuda.empty_cache()
     stage_s["gamlp_and_predictor"] = time.perf_counter() - t0
     t0 = time.perf_counter()
-    gcn = train_gcn(ds, adj_norm, os.path.join(trace_root, "gcn_epochs"))
+    train_gcn(ds, adj_norm, os.path.join(trace_root, "gcn_epochs"))
     torch.cuda.empty_cache()
     stage_s["gcn_and_gradient_check"] = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    timed = function_gradient_cases(ds, adj_norm)
-    stage_s["function_cases"] = time.perf_counter() - t0
     emit({"phase": "train_stages", "seconds": stage_s})
-    return {"launches": {"train_gamlp": gamlp["launches"]["ell_spmm"],
-                         "train_gcn": gcn["launches"]["ell_spmm"]},
-            "timed": timed}
 
 
 # --- the spectral and directed-operator slice ----------------------------------
@@ -1863,21 +1094,19 @@ def falling(losses, what: str) -> None:
           f"{what} losses {losses}: expected {SPECTRAL_EPOCHS} finite, the last below the first")
 
 
-def spectral_magnet(ds) -> dict:
+def spectral_magnet(ds) -> None:
     """magnet at ``ModelConfig`` defaults (hidden 256, 3 layers, K = 3, q =
     0.05) on the directed graph: ``prepare`` launches ``ell_spmm`` 4 K = 12
     times (four real SpMMs a hop on the hybrid packs of the real and
     imaginary parts); hop K against float64 scipy ``(A_re + i A_im)^K X``
     within 1e-4 (both parts); 5 epochs with no launch and a falling loss;
     then ``Predictor`` with the trained weights serves 1 / 1,000 / 4,096 ids
-    (no launch past its ``prepare``) and agrees with the task's logits. The
-    imaginary pack, whose zero weights are real entries, timed at F = 128."""
+    (no launch past its ``prepare``) and agrees with the task's logits."""
     import torch
 
     from ssrg_torch.configs.config import ModelConfig, TrainingConfig
     from ssrg_torch.models import zoo
     from ssrg_torch.models.zoo import load_model
-    from ssrg_torch.ops.sparse import build_hybrid
     from ssrg_torch.serve import Predictor
 
     cfg = ModelConfig(model_name="magnet")
@@ -1920,11 +1149,6 @@ def spectral_magnet(ds) -> dict:
     del pred, task, want
     torch.cuda.empty_cache()
 
-    imag = build_hybrid(im_a).to("cuda")
-    case = ell_case("magnet_imag_f128", imag.ell.cols, imag.ell.vals,
-                    torch.as_tensor(ds.x, device="cuda"), timed=True, tail=imag.tail)
-    case["phase"] = "spectral"
-    emit(case)
     emit({"phase": "spectral", "run": "magnet", "hidden": cfg.hidden_dim,
           "num_layers": cfg.num_layers, "prop_steps": k, "q": cfg.q, "classes": NUM_CLASSES,
           "nodes": NUM_NODES, "features": NUM_FEATURES, "directed_edges": int(ds.adj.nnz),
@@ -1933,19 +1157,16 @@ def spectral_magnet(ds) -> dict:
           **run, "hop_k_max_abs_err_vs_f64": hop_err, "hop_tolerance": "1e-4 abs",
           "serve_prepare_s": serve_prepare_s, "serve_logits_rel_err": gap,
           "requests": request_times(requests)})
-    return {"prepare": run["prepare_launches"]["ell_spmm"], "case": case}
 
 
-def spectral_two_dir(ds) -> dict:
+def spectral_two_dir(ds) -> None:
     """two_dir at defaults on the directed graph: ``prepare`` launches
     ``ell_spmm`` 3 K = 9 times (the un, in and out packs, K hops each); each
-    pack's nnz, width, padding and tail; 5 epochs with a falling loss. The
-    in pack (PᵀP, the widest rows) timed at F = 128."""
+    pack's nnz, width, padding and tail; 5 epochs with a falling loss."""
     import torch
 
     from ssrg_torch.configs.config import ModelConfig, TrainingConfig
     from ssrg_torch.models import zoo
-    from ssrg_torch.ops.sparse import build_hybrid
 
     cfg = ModelConfig(model_name="two_dir")
     k = cfg.prop_steps
@@ -1966,18 +1187,12 @@ def spectral_two_dir(ds) -> dict:
     torch.cuda.empty_cache()
     un, in_l, out_l = norm.result
     packs = {name: pack_stats(m) for name, m in (("un", un), ("in", in_l), ("out", out_l))}
-    in_pack = build_hybrid(in_l).to("cuda")
-    case = ell_case("two_dir_in_f128", in_pack.ell.cols, in_pack.ell.vals,
-                    torch.as_tensor(ds.x, device="cuda"), timed=True, tail=in_pack.tail)
-    case["phase"] = "spectral"
-    emit(case)
     emit({"phase": "spectral", "run": "two_dir", "hidden": cfg.hidden_dim,
           "num_layers": cfg.num_layers, "prop_steps": k, "classes": NUM_CLASSES,
           "nodes": NUM_NODES, "normalize_s": norm.seconds, "packs": packs, **run})
-    return {"prepare": run["prepare_launches"]["ell_spmm"], "case": case}
 
 
-def spectral_two_order() -> dict:
+def spectral_two_order() -> None:
     """two_order at Cora's size (planetoid_like): below ``DENSE_THRESHOLD``,
     so the dense engine and no kernel launch; the host construction (an
     (N+1)^2 eigendecomposition) timed apart; 5 epochs at the default rate."""
@@ -2004,7 +1219,6 @@ def spectral_two_order() -> dict:
           "nnz": int(ds.adj.nnz), "engine": "auto (dense)", "construction_s": norm.seconds,
           "construction_guard_max_nodes": TWO_ORDER_MAX_NODES,
           "one_order_nnz": int(one.nnz), "two_order_nnz": int(two.nnz), **run})
-    return {"prepare": run["prepare_launches"]["ell_spmm"]}
 
 
 def wavelet_gradient_check(task, phi_h, psi_h) -> dict:
@@ -2128,7 +1342,7 @@ def wavelet_gradient_check(task, phi_h, psi_h) -> dict:
             "conv1_weight_grad_err_over_bound_max": float((err_w / (tol_w + 1e-30)).max())}
 
 
-def spectral_wavelet() -> dict:
+def spectral_wavelet() -> None:
     """wavelet at PubMed's size (planetoid_like) with ``WaveletConfig`` and
     ``ModelConfig`` defaults. ``prepare`` builds (Φ, Φ⁻¹) with 2 scales x
     ceil(N / 1,024) impulse blocks x 3 Chebyshev orders ``ell_spmm``
@@ -2138,15 +1352,12 @@ def spectral_wavelet() -> dict:
     of Φᵀ and Φ⁻ᵀ), each evaluation 4, and the loss falls; then the
     gradient check of :func:`wavelet_gradient_check` at seeded initial
     weights, and ``GWNNTrainer`` at ``GWNNConfig`` defaults (5 epochs) fits
-    and scores. The kernel cases:
-    the Laplacian pack at F = 1,024, Φ at F = 256 (the hidden width) and
-    F = 3 (the classes), the Φᵀ backward pack at F = 256."""
+    and scores."""
     import torch
 
     from ssrg_torch.configs.config import ModelConfig, TrainingConfig
     from ssrg_torch.data.synthetic import planetoid_like
     from ssrg_torch.models import gwnn, wavelet
-    from ssrg_torch.ops.sparse import device_adjacency
 
     ds = planetoid_like(**PUBMED)
     n, classes = PUBMED["num_node"], PUBMED["num_classes"]
@@ -2170,7 +1381,6 @@ def spectral_wavelet() -> dict:
           f"{run['eval_launches']} (evaluation): expected 8 and 4 each")
     falling(run["losses"], "wavelet")
     phi_h, psi_h, stats = built.result
-    phi, psi = task.prepared.adj_device
     rec = {"phase": "spectral", "run": "wavelet", "hidden": cfg.hidden_dim,
            "classes": classes, "nodes": n, "features": PUBMED["num_features"],
            "nnz": int(ds.adj.nnz), "impulse_batch": wcfg.impulse_batch, "blocks": blocks,
@@ -2189,21 +1399,7 @@ def spectral_wavelet() -> dict:
     module.to("cuda")
     rec.update(wavelet_gradient_check(task, phi_h, psi_h))
     emit(rec)
-
-    gen = torch.Generator().manual_seed(SEED)
-    cases = {}
-    lap = device_adjacency(wavelet.combinatorial_laplacian(ds.adj).astype(np.float32),
-                           "hybrid", device="cuda")
-    for name, pack, f in (("laplacian_f1024", lap, wcfg.impulse_batch),
-                          ("phi_f256", phi.fwd, cfg.hidden_dim), ("phi_f3", phi.fwd, classes),
-                          ("phi_t_bwd_f256", phi.bwd, cfg.hidden_dim)):
-        x = torch.randn(n, f, generator=gen).to("cuda")
-        cases[name] = ell_case(name, pack.ell.cols, pack.ell.vals, x, timed=True,
-                               tail=pack.tail)
-        cases[name]["phase"] = "spectral"
-        emit(cases[name])
-        del x
-    del task, lap, phi, psi
+    del task
     torch.cuda.empty_cache()
 
     gcfg = gwnn.GWNNConfig(epochs=SPECTRAL_EPOCHS)
@@ -2236,17 +1432,12 @@ def spectral_wavelet() -> dict:
           "fit_and_score_s": time.perf_counter() - t2, "fit_and_score_launches": fit_launches,
           "losses": gwnn_losses, "epoch_s": [entry["seconds"] for entry in trainer.logs],
           "test_acc": score})
-    return {"construction": run["prepare_launches"]["ell_spmm"],
-            "train": sum(run["train_epoch_launches"]),
-            "eval": sum(run["eval_launches"]), "gwnn": sparsifier_launches + fit_launches,
-            "cases": cases}
 
 
-def phase_spectral() -> dict:
+def phase_spectral() -> None:
     """The spectral and directed-operator slice: magnet and two_dir on the
     directed graph at ogbn-arxiv's size, two_order at Cora's, wavelet and
-    GWNN at PubMed's. Returns the launches of each path and the timed
-    kernel cases."""
+    GWNN at PubMed's."""
     import torch
 
     stage_s = {}
@@ -2259,33 +1450,22 @@ def phase_spectral() -> dict:
           "directed_edges": int(ds.adj.nnz),
           "reciprocated_edges": int(ds.adj.multiply(ds.adj.T).nnz),
           "split": [len(ds.train_idx), len(ds.val_idx), len(ds.test_idx)]})
-    cases = {}
     t0 = time.perf_counter()
-    magnet = spectral_magnet(ds)
-    cases["magnet_imag_f128"] = magnet["case"]
+    spectral_magnet(ds)
     stage_s["magnet"] = time.perf_counter() - t0
     t0 = time.perf_counter()
-    two_dir = spectral_two_dir(ds)
-    cases["two_dir_in_f128"] = two_dir["case"]
+    spectral_two_dir(ds)
     stage_s["two_dir"] = time.perf_counter() - t0
     del ds
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    two_order = spectral_two_order()
+    spectral_two_order()
     stage_s["two_order"] = time.perf_counter() - t0
     t0 = time.perf_counter()
-    wav = spectral_wavelet()
-    cases.update(wav["cases"])
+    spectral_wavelet()
     stage_s["wavelet_and_gwnn"] = time.perf_counter() - t0
     torch.cuda.empty_cache()
     emit({"phase": "spectral_stages", "seconds": stage_s})
-    return {"launches": {"magnet_prepare": magnet["prepare"],
-                         "two_dir_prepare": two_dir["prepare"],
-                         "two_order_prepare": two_order["prepare"],
-                         "wavelet_construction": wav["construction"],
-                         "wavelet_train_epochs": wav["train"],
-                         "wavelet_evaluations": wav["eval"], "gwnn": wav["gwnn"]},
-            "cases": cases}
 
 
 # --- the robustness pipeline ---------------------------------------------------
@@ -2399,7 +1579,7 @@ def robust_augment(sp_ds, root: str) -> tuple:
         "launches": launches}
 
 
-def robust_node(aug_ds) -> dict:
+def robust_node(aug_ds) -> None:
     """GAMLP at ``ModelConfig`` defaults through ``NodeClassification`` on
     the augmented graph (F = 296, ``auto``: the hybrid). Checks: 3
     ``ell_spmm`` launches in ``prepare`` and none in training; hop K
@@ -2434,7 +1614,6 @@ def robust_node(aug_ds) -> dict:
            "nodes": int(aug_ds.num_node), "nnz": int(adj_norm.nnz), "engine": "auto", **run,
            "hop_k_max_abs_err_vs_f64": hop_err, "hop_tolerance": "1e-4 abs"}
     emit(rec)
-    return {"rec": rec, "adj_norm": adj_norm}
 
 
 def link_run(link, cfg, tc) -> tuple:
@@ -2574,7 +1753,7 @@ def link_gcn_gradient_check(task, adj_norm) -> dict:
             "fc1_weight_grad_err_over_bound_max": float((err_w / (tol_w + 1e-30)).max())}
 
 
-def robust_link(aug_ds, trace_dir: str) -> dict:
+def robust_link(aug_ds, trace_dir: str) -> None:
     """``link_dataset_from_graph`` on the augmented graph, then two
     ``LinkClassification`` runs of 5 full-batch epochs. The naive GCN's
     link head (hidden 256): both SpMMs at F = 256 on the pack of the
@@ -2636,27 +1815,21 @@ def robust_link(aug_ds, trace_dir: str) -> dict:
     emit({"phase": "robust", "run": "link_gamlp", "hidden": cfg.hidden_dim,
           "edge_mode": cfg.edge_mode, "pairs": sizes, **g_run})
     del g_task
-    return {"gcn_task": task, "gcn": gcn, "gamlp_prepare": g_run["prepare_launches"]["ell_spmm"]}
 
 
-def phase_robust(trace_root: str, graph: dict = None) -> dict:
+def phase_robust(trace_root: str, graph: dict = None) -> None:
     """The robustness pipeline at ogbn-arxiv's size: sparsify
     ``planetoid_like(**TRAIN_GRAPH)`` into a temporary directory, load it,
     augment it on the card, train GAMLP on the augmented graph, then the
-    link tasks (three link GCN epochs traced into ``trace_root``); the
-    kernel timed on the path's new shapes (the augmented pack at F = 296,
-    the observed-edge pack at F = 256 forward and as the backward). Returns
-    the launches of each path and the timed cases."""
+    link tasks (three link GCN epochs traced into ``trace_root``)."""
     import torch
 
     from ssrg_torch.data.synthetic import planetoid_like
-    from ssrg_torch.ops.sparse import build_hybrid
 
     stage_s = {}
     t0 = time.perf_counter()
     ds = planetoid_like(**(graph or TRAIN_GRAPH))
     stage_s["data"] = time.perf_counter() - t0
-    cases = {}
     with tempfile.TemporaryDirectory() as root:
         t0 = time.perf_counter()
         sp_ds, sparse_rec = robust_sparsify(ds, root)
@@ -2669,33 +1842,14 @@ def phase_robust(trace_root: str, graph: dict = None) -> dict:
     emit({"phase": "robust", "run": "augment", **aug_rec})
     del sp_ds
     t0 = time.perf_counter()
-    node = robust_node(aug_ds)
+    robust_node(aug_ds)
     stage_s["node_gamlp"] = time.perf_counter() - t0
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    link = robust_link(aug_ds, os.path.join(trace_root, "link_gcn_epochs"))
+    robust_link(aug_ds, os.path.join(trace_root, "link_gcn_epochs"))
     stage_s["link"] = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    gen = torch.Generator().manual_seed(SEED)
-    aug_pack = build_hybrid(node["adj_norm"]).to("cuda")
-    obs = link["gcn_task"].prepared.adj_device
-    n, hidden = link["gcn"]["nodes"], link["gcn"]["hidden"]
-    for name, pack, x in (
-            ("robust_aug_f296", aug_pack, torch.as_tensor(aug_ds.x, device="cuda")),
-            ("link_obs_f256", obs.fwd, torch.randn(n, hidden, generator=gen)),
-            ("link_obs_bwd_f256", obs.bwd, torch.randn(n, hidden, generator=gen))):
-        cases[name] = ell_case(name, pack.ell.cols, pack.ell.vals, x.to("cuda"), timed=True,
-                               tail=pack.tail)
-        cases[name].update(phase="robust", pack_reused_as_transpose=obs.symmetric)
-        emit(cases[name])
-    stage_s["kernel_cases"] = time.perf_counter() - t0
-    del aug_pack, obs, link["gcn_task"]
     torch.cuda.empty_cache()
     emit({"phase": "robust_stages", "seconds": stage_s})
-    return {"launches": {"robust_node_gamlp_prepare": node["rec"]["prepare_launches"]["ell_spmm"],
-                         "robust_link_gcn": link["gcn"]["launches"]["ell_spmm"],
-                         "robust_link_gamlp_prepare": link["gamlp_prepare"]},
-            "cases": cases}
 
 
 # --- the message-passing baselines ----------------------------------------------
@@ -2920,12 +2074,11 @@ GAT_EPOCH_LAUNCHES = {"gat_stats_kernel": 12, "gat_aggregate_kernel": 6,
                       "gat_score_sum_kernel": 3}
 
 
-def gat_published_run(ds, tc) -> dict:
+def gat_published_run(ds, tc) -> None:
     """The published GAT through ``BaselineTask`` on the card, as
     :func:`baseline_run` runs a baseline (every count set to 0 just before
     it): no ELL launch, none of the attention kernels in ``prepare``, and
-    ``GAT_EPOCH_LAUNCHES`` an epoch, its training and evaluation together.
-    Returns each attention kernel's launches in the run."""
+    ``GAT_EPOCH_LAUNCHES`` an epoch, its training and evaluation together."""
     from ssrg_torch.ops.gat_attention import gat_attention
 
     task, rec = baseline_run(ds, "gat", GAT_PUBLISHED, tc)
@@ -2945,7 +2098,6 @@ def gat_published_run(ds, tc) -> dict:
                features=ds.num_features, entries=task.adj_op.nnz,
                attention_launches_per_epoch=GAT_EPOCH_LAUNCHES)
     emit(rec)
-    return run
 
 
 def gat_oracle_check(task, ds) -> dict:
@@ -2992,16 +2144,14 @@ def gat_oracle_check(task, ds) -> dict:
             "oracle_max_abs": float(np.abs(h).max())}
 
 
-def phase_baseline(graph: dict = None) -> dict:
+def phase_baseline(graph: dict = None) -> None:
     """The seven baselines through ``BaselineTask`` on the ``train`` cell's
     graph (``planetoid_like(**TRAIN_GRAPH)``, ogbn-arxiv's size and splits),
     ``BASELINE_EPOCHS`` epochs each, then the GCN on cluster minibatches.
     Checks: launches per ``prepare`` and per epoch (``BASELINE_RUNS``),
     finite losses (GCN and SAGE falling), best val >= 0.25, the first-layer
     gradients of GCN and SAGE within their bounds, GAT against its dense
-    oracle. The kernel timed on SAGE's packs (forward, and A^T as the
-    backward) at F = 256. Returns the launches of each path and the timed
-    cases."""
+    oracle."""
     import torch
 
     from ssrg_torch.configs.config import TrainingConfig
@@ -3015,8 +2165,6 @@ def phase_baseline(graph: dict = None) -> dict:
     ds = planetoid_like(**(graph or TRAIN_GRAPH))
     stage_s["data"] = time.perf_counter() - t0
     tc = TrainingConfig(num_epochs=BASELINE_EPOCHS, lr=0.01, seed=SEED)
-    launches, cases = {}, {}
-    gen = torch.Generator().manual_seed(SEED)
     for name, kw, prep, per_epoch in BASELINE_RUNS:
         t0 = time.perf_counter()
         task, rec = baseline_run(ds, name, kw, tc)
@@ -3033,14 +2181,6 @@ def phase_baseline(graph: dict = None) -> dict:
             rec["transposed_pack_reused"] = task.adj_op.symmetric
             rec["width"], rec["bwd_width"] = task.adj_op.fwd.ell.width, task.adj_op.bwd.ell.width
             rec.update(baseline_gradient_check(name, task, norm))
-        if name == "sage":
-            for case, pack in (("sage_fwd_f256", task.adj_op.fwd),
-                               ("sage_bwd_f256", task.adj_op.bwd)):
-                g = torch.randn(ds.num_node, 256, generator=gen).to("cuda")
-                cases[case] = ell_case(case, pack.ell.cols, pack.ell.vals, g, timed=True,
-                                       tail=pack.tail)
-                cases[case].update(phase="baseline", pack_reused_as_transpose=False)
-                emit(cases[case])
         if name == "gat":
             # the reference's form: the score kernels, none of the attention's
             layers = kw["num_layers"]
@@ -3053,12 +2193,11 @@ def phase_baseline(graph: dict = None) -> dict:
                   f"gat: the reference's form launched {epochs}, expected {scores} an epoch")
             rec.update(gat_oracle_check(task, ds))
         emit(rec)
-        launches[f"baseline_{name}"] = rec["launches"]["ell_spmm"]
         stage_s[name] = time.perf_counter() - t0
         del task
         torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    gat_launches = gat_published_run(ds, tc)
+    gat_published_run(ds, tc)
     stage_s["gat_published"] = time.perf_counter() - t0
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
@@ -3073,12 +2212,10 @@ def phase_baseline(graph: dict = None) -> dict:
                batch_nodes=[int(cb.node_ids.numel()) for cb in task.cluster_batches],
                launches_per_epoch=per_epoch)
     emit(rec)
-    launches["baseline_gcn_cluster"] = rec["launches"]["ell_spmm"]
     stage_s["gcn_cluster"] = time.perf_counter() - t0
     del task
     torch.cuda.empty_cache()
     emit({"phase": "baseline_stages", "seconds": stage_s})
-    return {"launches": launches, "cases": cases, "attention_launches": gat_launches}
 
 
 # --- single-card out-of-core propagation and training ---------------------------
@@ -3118,7 +2255,7 @@ def ooc_hop(hop_dirs, meta) -> "np.ndarray":
                            for i in range(meta.num_shards)])[: meta.num_nodes]
 
 
-def phase_ooc(graph: dict = None) -> dict:
+def phase_ooc(graph: dict = None) -> None:
     """Out-of-core propagation and training on the ``train`` cell's graph:
     its edges (one direction of each pair), features and labels written as
     ``.npy`` under a temporary directory, spooled into ``OOC_SHARDS``
@@ -3128,8 +2265,7 @@ def phase_ooc(graph: dict = None) -> dict:
     ``K*2^-7*(|A|^K|X|)``), ELL launches per hop equal to the non-empty
     buckets, ``dest_outer``'s device memory within
     :func:`ooc_memory_bound`; then ``run_outofcore`` SGC and GAMLP on the
-    artifacts (reused, not rewritten), best val >= 0.25. The kernel timed
-    on the largest bucket's pack. Returns the launches and the case."""
+    artifacts (reused, not rewritten), best val >= 0.25."""
     import shutil
 
     import scipy.sparse as sp
@@ -3140,7 +2276,7 @@ def phase_ooc(graph: dict = None) -> dict:
     from ssrg_torch.ops.normalize import sym_norm
     from ssrg_torch.ops.propagate import propagate
     from ssrg_torch.ops.sparse import device_adjacency
-    from ssrg_torch.parallel.outofcore import bucket_edges, outofcore_propagate, pack_bucket
+    from ssrg_torch.parallel.outofcore import outofcore_propagate
     from ssrg_torch.train.outofcore_task import ensure_spooled, run_outofcore
 
     stage_s = {}
@@ -3154,7 +2290,7 @@ def phase_ooc(graph: dict = None) -> dict:
     x = np.asarray(ds.x, np.float32)
     n, f = x.shape
     stage_s["data"] = time.perf_counter() - t0
-    launches, cases, runs = {}, {}, {}
+    runs = {}
     with tempfile.TemporaryDirectory() as root:
         paths = {k: os.path.join(root, f"{k}.npy") for k in ("edges", "features", "labels")}
         t0 = time.perf_counter()
@@ -3219,25 +2355,10 @@ def phase_ooc(graph: dict = None) -> dict:
                 rec.update(memory_bound_bytes=bound_bytes, largest_bucket_bytes=largest)
             emit(rec)
             runs[name] = rec
-            if name == "source_outer_f32":
-                launches["ooc_source_outer"] = got["ell_spmm"]
             if wdir != work:
                 shutil.rmtree(wdir)
         check(runs["dest_outer_f32"]["mode"] == "dest_outer", "ooc: the small budget did not "
               "pick dest_outer")
-        # the kernel on the largest bucket's pack against its [block, F] source block
-        buckets = bucket_edges(meta)
-        size, i, j = max((int(off[j + 1] - off[j]), i, j) for i, (_, _, _, off)
-                         in enumerate(buckets) for j in range(meta.num_shards))
-        r, c, v, off = buckets[i]
-        ec, ev, _ = pack_bucket(r[off[j]:off[j + 1]], c[off[j]:off[j + 1]],
-                                v[off[j]:off[j + 1]], meta.block)
-        xj = torch.as_tensor(np.load(os.path.join(work, "hop0", f"block{j}.npy")), device="cuda")
-        case = ell_case("ooc_bucket_f128", torch.as_tensor(ec, device="cuda"),
-                        torch.as_tensor(ev, device="cuda"), xj, timed=True)
-        case.update(phase="ooc", bucket=[i, j], bucket_edges=size)
-        emit(case)
-        cases["ooc_bucket_f128"] = case
         hop_file = os.path.join(work, f"hop{OOC_STEPS}", "block0.npy")
         spool_file = os.path.join(meta.spool_dir, "shard_0.bin")
         stamps = (os.path.getmtime(hop_file), os.path.getmtime(spool_file))
@@ -3265,7 +2386,6 @@ def phase_ooc(graph: dict = None) -> dict:
                   "epoch_ms_after_first": float(np.median(epoch_ms[1:]))})
             stage_s[f"train_{model}"] = seconds
     emit({"phase": "ooc_stages", "spool_s": spool_s, "seconds": stage_s})
-    return {"launches": launches, "cases": cases}
 
 
 # --- the distributed tier --------------------------------------------------------
@@ -3607,7 +2727,7 @@ def cli_launches(step: str, got: dict, expected: dict) -> None:
     check(got == want, f"cli {step} launched {got}, expected {want}")
 
 
-def phase_cli() -> dict:
+def phase_cli() -> None:
     """``ssrg-torch`` on the card, through ``ssrg_torch.cli.main`` in this
     process: ``planetoid_like(**TRAIN_GRAPH)`` written as a dataset
     directory (``sparsify_dataset`` at rates 0, 0), then ``train`` (GAMLP at
@@ -3621,8 +2741,7 @@ def phase_cli() -> dict:
     checkpoint written; the predicted labels of the test split equal those
     of a ``Predictor`` built here from the same checkpoint (but at near
     ties, ``CLI_TIE_GAP``); spmd's best val finite and no process group left
-    after it; the bench's nnz and every rate finite and positive. Returns
-    each command's launches by kernel."""
+    after it; the bench's nnz and every rate finite and positive."""
     import math
     import re
 
@@ -3638,7 +2757,6 @@ def phase_cli() -> dict:
 
     t0 = time.perf_counter()
     name = "arxiv_like_0.0_0.0"
-    launches = {}
     with tempfile.TemporaryDirectory() as root:
         ds = planetoid_like(**TRAIN_GRAPH)
         sparsify_dataset(ds, 0.0, 0.0, os.path.join(root, name), seed=SEED)
@@ -3658,7 +2776,6 @@ def phase_cli() -> dict:
         check(best_val >= CLI_MIN_VAL, f"cli train best val {best_val} < {CLI_MIN_VAL}")
         check(os.path.isfile(ckpt), f"cli train wrote no checkpoint at {ckpt}")
         cli_launches("train", got, {"ell_spmm": 3})
-        launches["train"] = got
         emit({"phase": "cli", "step": "train", "argv": argv, "seconds": seconds,
               "launches": got, "best_val": best_val, "best_test": best_test})
 
@@ -3666,7 +2783,6 @@ def phase_cli() -> dict:
         argv = ["predict", *data, *CLI_MODEL, "--checkpoint", ckpt, "--out", labels_path]
         out, got, seconds = cli_call("predict", argv)
         cli_launches("predict", got, {"ell_spmm": 3})
-        launches["predict"] = got
         labels = np.load(labels_path)
         check(labels.shape == (test_size,),
               f"cli predict wrote labels of shape {labels.shape}, expected ({test_size},)")
@@ -3702,7 +2818,6 @@ def phase_cli() -> dict:
         check("spmd: mesh {'graph': 1}, engine tiled, comm halo" in out,
               f"cli spmd printed {out[-2000:]!r}")
         cli_launches("spmd", got, {"ell_spmm": 3})
-        launches["spmd"] = got
         emit({"phase": "cli", "step": "spmd", "argv": argv, "seconds": seconds,
               "launches": got, "best_val": spmd_val, "best_test": spmd_test,
               "line": out.strip().splitlines()[-1]})
@@ -3720,11 +2835,9 @@ def phase_cli() -> dict:
     cli_launches("bench", got, {"ell_spmm": 2 * 3 * hops, "rest_spmm": 3 * hops,
                                 "banded_spmm": 3 * hops})
     check_banded_paths("cli bench", banded_paths(), tensor_core=3 * hops)
-    launches["bench"] = got
     emit({"phase": "cli", "step": "bench", "seconds": seconds, "launches": got,
           "rates": rates})
     emit({"phase": "cli", "seconds": time.perf_counter() - t0})
-    return launches
 
 
 # --- the bench entry point -----------------------------------------------------
@@ -3736,19 +2849,14 @@ BENCH_TIERS = (("device_edges_per_s", "headline", "ell_spmm"),
                ("banded_tier_metrics", "banded", "banded_spmm"))
 
 
-def phase_bench(trace_dir: str) -> dict:
+def phase_bench(trace_dir: str) -> None:
     """``run_bench()`` at its defaults on the card, its headline hops traced.
     Each tier's function is wrapped so that the launch counts are set to 0
     just before it and read just after. Checks: the headline, library,
     clustered and banded rates finite and positive; the headline graph's
     nnz; the sharded rate and its ratio to the headline's finite and
     positive; each tier launched only its kernel, once a hop of each of its
-    runs (a warm run and two timed runs, and the traced run of the headline).
-    Then the banded kernel held against its plain version on the banded
-    tier's own pack and x (the locality phase holds the headline's ELL pack
-    and the community rest, the other tiers' inputs), timed beside its bound
-    and ``torch.bmm``. Returns each tier's launches of its kernel and that
-    record."""
+    runs (a warm run and two timed runs, and the traced run of the headline)."""
     import math
 
     import torch
@@ -3782,7 +2890,6 @@ def phase_bench(trace_dir: str) -> dict:
         check(math.isfinite(result[key]) and result[key] > 0, f"bench: {key} = {result[key]}")
     check(result["nnz"] == BENCH_NNZ, f"bench: nnz {result['nnz']}, expected {BENCH_NNZ}")
     hops = result["iters"] * result["prop_steps"]
-    launches = {}
     for _, tier, kernel in BENCH_TIERS:
         runs = 4 if tier == "headline" else 3
         expected = {name: (runs * hops if name == kernel else 0) for name in KERNELS}
@@ -3791,17 +2898,8 @@ def phase_bench(trace_dir: str) -> dict:
         # the banded tier's pack is bf16: the tensor-core path
         check_banded_paths(f"bench {tier} tier", counted_paths[tier],
                            tensor_core=expected["banded_spmm"])
-        launches[tier] = counted[tier][kernel]
     emit({"phase": "bench", "seconds": seconds, "launches_by_tier": counted,
           "trace": check_trace(result["trace"], "bench headline")})
-    torch.cuda.empty_cache()
-    blocks, los, x = bench.banded_tier_inputs(result["num_features"], "cuda")
-    dense = banded_case("bench_banded_dense", blocks, los, x, round_x=True, timed=True)
-    dense["phase"] = "bench"
-    emit(dense)
-    del blocks, los, x
-    torch.cuda.empty_cache()
-    return {"launches": launches, "dense": dense}
 
 
 def main() -> int:
@@ -3843,122 +2941,38 @@ def main() -> int:
                       seed=SEED)
     adj_norm = sym_norm(ds.adj, 0.5)
     pg = powerlaw_graph(NUM_NODES, AVG_DEGREE, NUM_FEATURES, seed=SEED)
-    packs, normalized = {}, {}
-    for name, adj, feats in (("headline", adj_norm, ds.x),
-                             ("powerlaw", sym_norm(pg.adj, 0.5), pg.x)):
-        packs[name] = (build_hybrid(adj).to("cuda"),
-                       torch.as_tensor(feats, device="cuda"))
-        normalized[name] = (adj, packs[name][0].ell.width)
+    normalized = {name: (adj, build_hybrid(adj).ell.width)
+                  for name, adj in (("headline", adj_norm), ("powerlaw", sym_norm(pg.adj, 0.5)))}
+    del pg
     emit({"phase": "data", "host_s": time.perf_counter() - t0, "nnz": int(adj_norm.nnz),
-          "width": packs["headline"][0].ell.width,
-          "powerlaw_width": packs["powerlaw"][0].ell.width})
+          "width": normalized["headline"][1], "powerlaw_width": normalized["powerlaw"][1]})
     phase_native(native_rec, normalized)
     del normalized
 
-    recs = phase_kernels(packs["headline"], packs["powerlaw"])
-    del packs
-    gat_recs = phase_gat(pg.adj)
-    launches = {"ell_spmm": phase_slice(ds, adj_norm)}
+    kernel_summary = phase_kernels()
+    phase_slice(ds, adj_norm)
     phase_layers(ds, prop_steps=3)
-    del ds, adj_norm, pg
+    del ds, adj_norm
     torch.cuda.empty_cache()
-
-    timed = {"ell_spmm": recs["headline"]}
-    locality_recs, locality_launches, banded_by_path = phase_locality(prop_steps=3)
-    timed.update(locality_recs)
-    launches.update(locality_launches)
+    phase_locality(prop_steps=3)
     torch.cuda.empty_cache()
-    train = phase_train(trace_root)
+    phase_train(trace_root)
     torch.cuda.empty_cache()
-    spectral = phase_spectral()
+    phase_spectral()
     torch.cuda.empty_cache()
-    robust = phase_robust(trace_root)
+    phase_robust(trace_root)
     torch.cuda.empty_cache()
-    baseline = phase_baseline()
+    phase_baseline()
     torch.cuda.empty_cache()
-    ooc = phase_ooc()
+    phase_ooc()
     torch.cuda.empty_cache()
-    dist_run = phase_dist()
+    phase_dist()
     torch.cuda.empty_cache()
-    cli_run = phase_cli()
+    phase_cli()
     torch.cuda.empty_cache()
-    bench_run = phase_bench(os.path.join(trace_root, "bench_headline"))
-    bench_launches = bench_run["launches"]
-    # each path's launches, counted from 0 just before it and read just after
-    by_path = {"ell_spmm": {"slice": launches["ell_spmm"], **train["launches"],
-                            **spectral["launches"], **robust["launches"],
-                            **baseline["launches"], **ooc["launches"],
-                            **dist_run["launches"],
-                            "bench_headline": bench_launches["headline"],
-                            "bench_sharded": bench_launches["sharded"]},
-               "banded_spmm": {"banded_f32": launches["banded_spmm"],
-                               "banded_bf16": banded_by_path["tensor_core"][1],
-                               "bench_banded": bench_launches["banded"]},
-               "rest_spmm": {"tiled_bf16": launches["rest_spmm"],
-                             "bench_clustered": bench_launches["clustered"]}}
-    for step, got in cli_run.items():
-        for name, count in got.items():
-            if count:
-                by_path[name][f"cli_{step}"] = count
-
-    emit({"kernels": [{
-        "name": name, "route": "cuda", "source": f"ssrg_torch/csrc/{name}.cu",
-        "replaces": REPLACES[name], "launches": launches[name],
-        "launches_by_path": by_path[name],
-        "max_abs_err": timed[name]["max_abs_err"], "ms": timed[name]["ms"],
-        "kernel_ms": timed[name]["ms"], "plain_ms": timed[name]["plain_ms"],
-        "bound_ms": timed[name]["bound_ms"], "bound_by": timed[name]["bound_by"],
-        "library_ms": timed[name]["library_ms"],
-        **({"backward_cases": {case: {k: rec[k] for k in
-                                      ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-                                       "max_abs_err", "function_grad_max_abs_err",
-                                       "function_fwd_bwd_ms")}
-                               for case, rec in train["timed"].items()}}
-           if name == "ell_spmm" else {}),
-        **({"spectral_cases": {case: {k: rec[k] for k in
-                                      ("f", "width", "ms", "plain_ms", "bound_ms", "bound_by",
-                                       "library_ms", "max_abs_err")}
-                               for case, rec in spectral["cases"].items()}}
-           if name == "ell_spmm" else {}),
-        **({"robust_cases": {case: {k: rec[k] for k in
-                                    ("f", "width", "ms", "plain_ms", "bound_ms", "bound_by",
-                                     "bound_share", "library_ms", "max_abs_err")}
-                             for case, rec in robust["cases"].items()}}
-           if name == "ell_spmm" else {}),
-        **({"baseline_cases": {case: {k: rec[k] for k in
-                                      ("f", "width", "ms", "plain_ms", "bound_ms", "bound_by",
-                                       "bound_share", "library_ms", "max_abs_err")}
-                               for case, rec in {**baseline["cases"], **ooc["cases"]}.items()}}
-           if name == "ell_spmm" else {}),
-        **({"bench_dense_case": {k: bench_run["dense"][k] for k in
-                                 ("path", "ms", "plain_ms", "bound_ms", "bound_by",
-                                  "bound_share", "library_ms", "max_abs_err",
-                                  "max_err_over_tolerance", "tolerance")},
-            # each path on its pack of the reorder_banded slice: f32 (stream)
-            # and bf16 (tensor cores); the line's own numbers are the f32 pack's
-            "paths": {p: {"launches": n, **{k: rec[k] for k in
-                                            ("ms", "plain_ms", "bound_ms", "bound_by",
-                                             "bound_share", "library_ms", "max_abs_err",
-                                             "max_err_over_tolerance", "tolerance")}}
-                      for p, (rec, n) in banded_by_path.items()}}
-           if name == "banded_spmm" else {}),
-    } for name in KERNELS] + [{
-        # the attention kernels replace no TPU kernel (the reference's GAT is XLA)
-        "name": kernel, "route": "cuda", "source": "ssrg_torch/csrc/gat_attention.cu",
-        "replaces": None, "launches": baseline["attention_launches"][kernel],
-        "launches_by_path": {"baseline_gat_published": baseline["attention_launches"][kernel]},
-        "max_abs_err": rec["max_abs_err"], "ms": rec["ms"], "kernel_ms": rec["ms"],
-        "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
-        "shape": {"heads": rec["heads"], "c": rec["c"], "entries": rec["entries"]},
-        "cases": {shape: {k: by_kernel[kernel][k] for k in
-                          ("heads", "c", "ms", "plain_ms", "bound_ms", "bound_by",
-                           "bound_share", "max_abs_err")}
-                  for shape, by_kernel in gat_recs.items()},
-    } for kernel, rec in gat_recs["h%d_c%d" % GAT_SHAPES[0]].items()]})
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True, text=True,
-                         check=True)
-    print(" | ".join(ln.strip() for ln in smi.stdout.splitlines() if ln.strip()), flush=True)
+    phase_bench(os.path.join(trace_root, "bench_headline"))
+    emit({"kernels": kernel_summary})
+    print(card_line(), flush=True)
     if trace_tmp is not None:
         trace_tmp.cleanup()
     # the run drives one card, whatever else the machine holds

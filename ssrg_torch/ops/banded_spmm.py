@@ -103,7 +103,7 @@ def banded_spmm_plain(blocks: torch.Tensor, los: torch.Tensor, x: torch.Tensor,
 
 
 NO_GRAD = ("the banded kernel is forward-only, as the reference's _banded_kernel "
-           "(ROADMAP.md section 2, item 2); differentiate through the dense or "
+           "(csrc/banded_spmm.cu's note, PERF.md section 6); differentiate through the dense or "
            "hybrid engine")
 
 

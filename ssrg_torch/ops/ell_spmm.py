@@ -36,7 +36,7 @@ NAME = "ell_spmm"
 TILE = 64
 
 NO_GRAD = ("the kernel's gradient is the same kernel on the transposed pack: "
-           "use ops.sparse.differentiable_adjacency (ROADMAP.md section 2, item 1)")
+           "use ops.sparse.differentiable_adjacency (csrc/ell_spmm.cu's note, PERF.md section 6)")
 
 # bytes of gathered neighbour rows the plain version materializes at once
 _PLAIN_CHUNK_BYTES = 1 << 26

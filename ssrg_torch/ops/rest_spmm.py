@@ -97,7 +97,7 @@ def rest_spmm_plain(row_ptr: torch.Tensor, row_end: torch.Tensor, cols: torch.Te
 
 
 NO_GRAD = ("the rest kernel is forward-only, as the reference's _rest_kernel "
-           "(ROADMAP.md section 2, item 3); differentiate through the dense or "
+           "(csrc/rest_spmm.cu's note, PERF.md section 6); differentiate through the dense or "
            "hybrid engine")
 
 

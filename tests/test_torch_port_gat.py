@@ -27,6 +27,9 @@ cases also run where only the port is installed:
     python -m pytest tests/test_torch_port_gat.py -m cuda --noconftest
 """
 
+import os
+import sys
+
 import numpy as np
 import pytest
 import scipy.sparse as sp
@@ -46,6 +49,11 @@ from ssrg_torch.models.heads import bind_generator
 from ssrg_torch.ops import gat_attention as ga
 from ssrg_torch.train.baseline_task import BaselineTask, gat_edges
 from ssrg_torch.train.common import cross_entropy_loss
+
+# the full-size graph's sizes, as tools/kernels.py builds it (last on the
+# path, so that no file of tools/ shadows another top-level name)
+sys.path.append(os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "tools"))
+import card  # noqa: E402  (tools/card.py)
 
 N, F_IN = 400, 20
 HUB, ISOLATED = 3, 11
@@ -480,12 +488,25 @@ CARD_CASES = [  # (nodes, hub degree, heads, head width)
     (2000, 700, 2, 300),    # 16 floats a lane
     (2000, 300, 3, 64),     # groups of 16 lanes
 ]
+# and at full size: the power-law graph at ogbn-arxiv's 169,343 nodes (its
+# attention listing, about 2.3 M entries), at the GAT cell's head widths
+FULL_CARD_CASES = CARD_CASES + [(card.NUM_NODES, "powerlaw", 4, 128),
+                                (card.NUM_NODES, "powerlaw", 4, 47)]
+
+
+def _card_id(case):
+    return "n{}_hub{}_h{}_c{}".format(*case)
 
 
 def _card_inputs(case, device, seed=0):
     n, hub, h, c = case
-    data = _graph(n, hub, seed)
-    edges = EdgeList.attention(_adj(data)).to(device)
+    if hub == "powerlaw":
+        from ssrg_torch.data.synthetic import powerlaw_graph
+
+        edges = EdgeList.attention(powerlaw_graph(n, card.AVG_DEGREE, card.NUM_FEATURES,
+                                                  seed=seed).adj).to(device)
+    else:
+        edges = EdgeList.attention(_adj(_graph(n, hub, seed))).to(device)
     g = torch.Generator().manual_seed(seed)
     z = torch.randn((n, h, c), generator=g).to(device)
     s_src = torch.randn((n, h), generator=g).to(device)
@@ -499,12 +520,15 @@ def _gap(got, want):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", CARD_CASES, ids=lambda c: "n{}_hub{}_h{}_c{}".format(*c))
+@pytest.mark.parametrize("case", FULL_CARD_CASES, ids=_card_id)
 def test_kernels_match_their_plain_versions(cuda_device, case):
     """Each step's kernel against its plain version on the same card
-    tensors, forward and backward."""
+    tensors, forward and backward, each launching its kernels once (the
+    statistics two: maxima, sums); the row dot packs ``s_dst``, ``m`` and
+    ``l`` as they are."""
     edges, z, s_src, s_dst, grad = _card_inputs(case, cuda_device)
     nnz, slope = edges.nnz, 0.2
+    named = dict(ga.gat_attention.kernel_launches)
     m, l = ga.softmax_stats(edges.row, edges.col, s_src, s_dst, nnz, slope)
     out = ga.aggregate(edges.row, edges.col, s_src, s_dst, m, l, z, nnz, slope)
     q = ga.rowdot(grad, out, s_dst, m, l)
@@ -515,6 +539,10 @@ def test_kernels_match_their_plain_versions(cuda_device, case):
     dz_p, ds_src_p, ds_dst_p = ga.backward_plain(edges.t_row, edges.t_col, q_p, s_src, z,
                                                  grad, nnz, slope)
     torch.cuda.synchronize()
+    moved = {k: v - named[k] for k, v in ga.gat_attention.kernel_launches.items() if v != named[k]}
+    assert moved == {"gat_stats_kernel": 2, "gat_aggregate_kernel": 1, "gat_rowdot_kernel": 1,
+                     "gat_backward_kernel": 1}
+    assert torch.equal(q[..., :3], torch.stack([s_dst, m, l], dim=-1))
     assert torch.equal(m, m_p)          # a maximum is exact in any order
     assert _gap(l, l_p) <= 1e-5
     assert _gap(out, out_p) <= 1e-5
@@ -599,7 +627,7 @@ def test_attention_dropout_above_zero_raises_on_the_card(cuda_device, data):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", CARD_CASES, ids=lambda c: "n{}_hub{}_h{}_c{}".format(*c))
+@pytest.mark.parametrize("case", FULL_CARD_CASES, ids=_card_id)
 def test_score_kernels_match_their_plain_versions(cuda_device, case):
     """Both score kernels against their plain versions on the same card
     tensors, and the gradient's bits the same in two runs (``da`` is summed

@@ -1,10 +1,10 @@
 """The PyTorch port stands alone: no file of ``ssrg_torch``, no
-``examples/torch_*.py``, no ``chip_smoke.py`` and none of
-``tools/ell_variants.py``, ``tools/banded_variants.py`` and
-``tools/coo_variants.py`` imports jax, flax, optax, msgpack or ``ssrg_tpu``;
+``examples/torch_*.py``, no ``chip_smoke.py`` and neither ``tools/card.py``
+nor ``tools/kernels.py`` imports jax, flax, optax, msgpack or ``ssrg_tpu``;
 none of them, nor a source under ``ssrg_torch/csrc``, names a path under the
 JAX package's ``native/`` directory; importing the port pulls none of them
-in; and the four scripts fail without a CUDA card, ``chip_smoke.py`` also without the rest of the
+in; and the scripts fail without a CUDA card (``tools/kernels.py`` for each
+kernel of its table), ``chip_smoke.py`` also without the rest of the
 repository."""
 
 import ast
@@ -23,9 +23,8 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "msgpack", "ssrg_tpu")
 PACKAGE_FILES = sorted((ROOT / "ssrg_torch").rglob("*.py"))
 EXAMPLE_FILES = sorted((ROOT / "examples").glob("torch_*.py"))
 PORT_FILES = PACKAGE_FILES + EXAMPLE_FILES + [ROOT / "chip_smoke.py",
-                                              ROOT / "tools" / "ell_variants.py",
-                                              ROOT / "tools" / "banded_variants.py",
-                                              ROOT / "tools" / "coo_variants.py"]
+                                              ROOT / "tools" / "card.py",
+                                              ROOT / "tools" / "kernels.py"]
 SOURCES = sorted((ROOT / "ssrg_torch" / "csrc").iterdir())
 
 
@@ -88,22 +87,31 @@ def test_chip_smoke_fails_without_a_card(no_cuda):
     assert '"ok": true' not in proc.stdout
 
 
-def test_ell_variants_fails_without_a_card(no_cuda):
-    proc = _run(["tools/ell_variants.py"], ROOT)
+@pytest.mark.parametrize("kernel", ["ell", "coo", "banded", "rest", "gat"])
+def test_kernels_tool_fails_without_a_card(no_cuda, kernel):
+    proc = _run(["tools/kernels.py", "--kernel", kernel], ROOT)
     assert proc.returncode == 2, proc.stderr[-2000:]
     assert not proc.stdout
 
 
-def test_banded_variants_fails_without_a_card(no_cuda):
-    proc = _run(["tools/banded_variants.py"], ROOT)
-    assert proc.returncode == 2, proc.stderr[-2000:]
-    assert not proc.stdout
+@pytest.mark.parametrize("kernel", ["ell", "coo", "banded", "rest", "gat"])
+def test_kernels_tool_variants_set_constants_of_their_source(kernel, monkeypatch):
+    """Each variant of ``tools/kernels.py``'s table, the source's own first,
+    sets constants its kernel's source declares once each: a constant
+    renamed or removed in the source fails here, before a card builds it."""
+    import importlib
 
+    from ssrg_torch.ops import _nvcc
 
-def test_coo_variants_fails_without_a_card(no_cuda):
-    proc = _run(["tools/coo_variants.py"], ROOT)
-    assert proc.returncode == 2, proc.stderr[-2000:]
-    assert not proc.stdout
+    monkeypatch.syspath_prepend(str(ROOT / "tools"))
+    kernels = importlib.import_module("kernels")
+    entry = kernels.KERNELS[kernel]
+    name = importlib.import_module(f"ssrg_torch.ops.{entry.module}").NAME
+    text = pathlib.Path(_nvcc.source(name)).read_text()
+    assert entry.variants[0] == ("source", {})
+    for variant, changes in entry.variants:
+        changed = kernels.card.variant_source(text, changes, name)
+        assert all(f"constexpr int {c} = {v};" in changed for c, v in changes.items()), variant
 
 
 def test_chip_smoke_fails_without_the_repository(tmp_path):

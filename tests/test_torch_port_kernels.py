@@ -3,13 +3,21 @@ plain version against a float64 numpy product on ragged packs, each
 wrapper's refusals, and, on a CUDA card, each hand-written kernel against
 its plain version.
 
+On a card each kernel is also held to its plain version on the 169,343-node
+graphs it runs on in practice (the ``*_CARD_CASES`` lists: each ragged list
+and the names of full-size cases, which only the card's tests take).
+
 This file imports neither jax nor ``ssrg_tpu``, so the ``cuda``-marked
 tests also run where only the port is installed:
 
     python -m pytest tests/test_torch_port_kernels.py -m cuda --noconftest
 """
 
+import dataclasses
+import functools
+import os
 import re
+import sys
 
 import numpy as np
 import pytest
@@ -24,6 +32,11 @@ from ssrg_torch.ops.coo_spmm import coo_accumulate, coo_accumulate_plain
 from ssrg_torch.ops.ell_spmm import ell_spmm, ell_spmm_plain
 from ssrg_torch.ops.pallas_rest import build_rest_segmented
 from ssrg_torch.ops.rest_spmm import rest_spmm, rest_spmm_plain
+
+# the full-size graphs and packs, built as tools/kernels.py builds them (last
+# on the path, so that no file of tools/ shadows another top-level name)
+sys.path.append(os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "tools"))
+import card  # noqa: E402  (tools/card.py)
 
 # f32 unit roundoff: a kernel and its plain version that sum the same c terms
 # of a row in another order differ by at most 2 * c * u * sum|term|
@@ -51,7 +64,12 @@ ELL_CASES = [  # (rows, n, width, f, empty_fraction[, kind])
 ]
 
 
+ELL_CARD_CASES = ELL_CASES + ["headline", "powerlaw", "headline_l2_resident"]
+
+
 def _ell_id(case):
+    if isinstance(case, str):
+        return case
     return "r{}_n{}_w{}_f{}".format(*case[:4]) + (f"_{case[5]}" if len(case) > 5 else "")
 
 
@@ -60,6 +78,33 @@ def cuda_device():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the port's kernels run only there")
     return torch.device("cuda")
+
+
+# --- the full-size cases (a card only) ----------------------------------------
+
+
+@functools.cache
+def _full_hybrid(name):
+    """The hybrid pack of ``D^-1/2 A D^-1/2`` of the headline (uniform
+    degrees) or the power-law graph, and its features, on the host."""
+    from ssrg_torch.data.synthetic import powerlaw_graph, random_graph
+    from ssrg_torch.ops.normalize import sym_norm
+
+    if name == "headline":
+        g = random_graph(card.NUM_NODES, card.AVG_DEGREE, card.NUM_FEATURES,
+                         num_classes=card.NUM_CLASSES, seed=card.SEED)
+    else:
+        g = powerlaw_graph(card.NUM_NODES, card.AVG_DEGREE, card.NUM_FEATURES, seed=card.SEED)
+    return sparse.build_hybrid(sym_norm(g.adj, 0.5)), torch.as_tensor(g.x)
+
+
+def _full_locality(engine, bf16, device):
+    """``prepare``'s reorder path for ``engine`` on the card: its pack and
+    the renumbered features. ``reorder_banded`` on the band whose ids RCM
+    has to find again, ``reorder_tiled`` on ``community_graph`` (label
+    propagation finds the clusters)."""
+    ds = card.banded_dataset() if engine == "reorder_banded" else card.community_dataset()
+    return card.locality_pack(ds, engine, bf16, device)
 
 
 def _ell_case(rows, n, width, f, empty, kind=None, seed=0):
@@ -92,9 +137,15 @@ def _ell_case(rows, n, width, f, empty, kind=None, seed=0):
 
 
 def _ell_tensors(case, device):
-    """``(cols, vals, x)`` of an ``ELL_CASES`` entry on ``device``; a
+    """``(cols, vals, x)`` of an ``ELL_CARD_CASES`` entry on ``device``; a
     ``"misaligned"`` case's x is contiguous but 4 bytes off 16-byte
     alignment."""
+    if isinstance(case, str):
+        hyb, x = _full_hybrid(case.removesuffix("_l2_resident"))
+        cols = hyb.ell.cols
+        if case.endswith("_l2_resident"):
+            cols, x = torch.remainder(cols, card.L2_ROWS), x[:card.L2_ROWS]
+        return cols.to(device), hyb.ell.vals.to(device), x.to(device)
     cols, vals, x, _ = _ell_case(*case)
     c, v = torch.from_numpy(cols).to(device), torch.from_numpy(vals).to(device)
     xx = torch.from_numpy(x).to(device)
@@ -138,7 +189,7 @@ def _ell_tolerance(c, v, xx):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", ELL_CASES, ids=_ell_id)
+@pytest.mark.parametrize("case", ELL_CARD_CASES, ids=_ell_id)
 def test_ell_spmm_kernel_matches_plain(cuda_device, case):
     c, v, xx = _ell_tensors(case, cuda_device)
     before = ell_spmm.launches
@@ -184,6 +235,15 @@ BANDED_CASES = [  # (nb, rb, w, n, f, blocks dtype, round_x[, kind])
     (2, 130, 192, 500, 128, "bf16", False, "dense_block"),  # every entry of block 0 nonzero
     (3, 64, 128, 300, 36, "bf16", False, "misaligned"),    # pack and x off 16-byte alignment
 ]
+BANDED_CARD_CASES = BANDED_CASES + [
+    (2, 64, 128, 400, 1024, "bf16", False),   # F 1,024: four wide tiles
+    (3, 128, 96, 300, 4, "bf16", False),      # F 4 on the tensor cores
+    "banded_f32_pack", "banded_bf16_pack", "bench_banded_dense",
+]
+
+
+def _banded_id(case):
+    return case if isinstance(case, str) else "nb{}_rb{}_w{}_n{}_f{}_{}_{}".format(*case)
 
 
 def _bf16(a):
@@ -232,7 +292,7 @@ def _banded_tensors(case, device):
     return blocks.to(device), los.to(device), x.to(device), expected
 
 
-@pytest.mark.parametrize("case", BANDED_CASES, ids=lambda c: "nb{}_rb{}_w{}_n{}_f{}_{}_{}".format(*c))
+@pytest.mark.parametrize("case", BANDED_CASES, ids=_banded_id)
 def test_banded_spmm_plain_ragged(case):
     blocks, los, x, expected = _banded_tensors(case, "cpu")
     before = banded_spmm.launches
@@ -275,7 +335,7 @@ def _banded_tolerance(blocks, los, x, round_x):
     sum, 2 * c * 2^-24 * S apart. The tensor-core path (the derivation is in
     csrc/banded_spmm.cu, on Fasi et al.'s 2021 model of the MMA's sum, which
     they measured on Volta to Ampere and is assumed for Hopper's wgmma; the
-    card's observed error, chip_smoke.py's max_err_over_tolerance, backs it):
+    card's observed error, tools/kernels.py's max_err_over_tolerance, backs it):
     an MMA group with g nonzero products loses less than (g + 2) * 2^-23 * S
     to its alignment and normalization by truncation, 3c * 2^-23 * S over the
     row, and the plain version's f32 sum c * 2^-24 * S more: 7 * c * 2^-24 *
@@ -286,19 +346,33 @@ def _banded_tolerance(blocks, los, x, round_x):
                                                                round_x)
 
 
+def _banded_card_tensors(case, device):
+    """``(blocks, los, x, round_x)`` of a ``BANDED_CARD_CASES`` entry on
+    ``device``: the ``reorder_banded`` packs (f32: the stream path; bf16 with
+    a bf16 window: the tensor cores) and the bench's dense bf16 pack."""
+    if case == "bench_banded_dense":
+        from ssrg_torch import bench
+
+        return (*bench.banded_tier_inputs(card.NUM_FEATURES, device), True)
+    if isinstance(case, str):
+        pack, x = _full_locality("reorder_banded", case == "banded_bf16_pack", device)
+        return pack.blocks, pack.los, x, pack.window_bf16
+    return (*_banded_tensors(case, device)[:3], case[6])
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", BANDED_CASES, ids=lambda c: "nb{}_rb{}_w{}_n{}_f{}_{}_{}".format(*c))
+@pytest.mark.parametrize("case", BANDED_CARD_CASES, ids=_banded_id)
 def test_banded_spmm_kernel_matches_plain(cuda_device, case):
-    blocks, los, x, _ = _banded_tensors(case, cuda_device)
+    blocks, los, x, round_x = _banded_card_tensors(case, cuda_device)
     chosen = banded_spmm_module.path(blocks)
     before, before_path = banded_spmm.launches, banded_spmm.path_launches[chosen]
-    out = banded_spmm(blocks, los, x, round_x=case[6])
+    out = banded_spmm(blocks, los, x, round_x=round_x)
     torch.cuda.synchronize()
     assert banded_spmm.launches == before + 1
     assert banded_spmm.path_launches[chosen] == before_path + 1
-    assert chosen == ("tensor_core" if case[5] == "bf16" else "stream")
-    tol = _banded_tolerance(blocks, los, x, case[6])
-    diff = (out - banded_spmm_plain(blocks, los, x, case[6])).abs()
+    assert chosen == ("tensor_core" if blocks.dtype == torch.bfloat16 else "stream")
+    tol = _banded_tolerance(blocks, los, x, round_x)
+    diff = (out - banded_spmm_plain(blocks, los, x, round_x)).abs()
     assert bool((diff <= tol + 1e-30).all()), float(diff.max())
 
 
@@ -331,6 +405,11 @@ REST_CASES = [  # (n_rows, n_cols, edges, row_block, chunk, f, long_row, gather_
     (600, 700, 0, 64, 128, 128, False, False, "short"),   # F = 128, rows of 1-3 entries
     (512, 400, 0, 64, 96, 128, False, True, "pad_last"),  # blocks' last rows edge-free, pads
 ]
+REST_CARD_CASES = REST_CASES + ["community_rest_bf16", "community_rest_f32"]
+
+
+def _rest_id(case):
+    return case if isinstance(case, str) else "n{}_m{}_e{}_rb{}_c{}_f{}_{}_{}".format(*case)
 
 
 def _rest_case(n, m, e, rb, chunk, f, long_row, gather_bf16, rows=None, seed=0):
@@ -364,7 +443,7 @@ def _rest_case(n, m, e, rb, chunk, f, long_row, gather_bf16, rows=None, seed=0):
     return pack, torch.from_numpy(x), expected
 
 
-@pytest.mark.parametrize("case", REST_CASES, ids=lambda c: "n{}_m{}_e{}_rb{}_c{}_f{}_{}_{}".format(*c))
+@pytest.mark.parametrize("case", REST_CASES, ids=_rest_id)
 def test_rest_spmm_plain_ragged(case):
     pack, x, expected = _rest_case(*case)
     before = rest_spmm.launches
@@ -385,19 +464,23 @@ def test_rest_spmm_refuses_what_the_kernel_does_not_take():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", REST_CASES, ids=lambda c: "n{}_m{}_e{}_rb{}_c{}_f{}_{}_{}".format(*c))
+@pytest.mark.parametrize("case", REST_CARD_CASES, ids=_rest_id)
 def test_rest_spmm_kernel_matches_plain(cuda_device, case):
-    pack, x, _ = _rest_case(*case)
-    pack, x = pack.to(cuda_device), x.to(cuda_device)
-    rp, re, c, v = pack.row_ptr, pack.row_end, pack.cols, pack.vals
+    if isinstance(case, str):  # the reorder_tiled community rest, bf16 or f32 gathers
+        pack, x = _full_locality("reorder_tiled", True, cuda_device)
+        pack = dataclasses.replace(pack.rest, gather_bf16=case.endswith("bf16"))
+    else:
+        pack, x, _ = _rest_case(*case)
+        pack, x = pack.to(cuda_device), x.to(cuda_device)
+    rp, re, c, v, bf16 = pack.row_ptr, pack.row_end, pack.cols, pack.vals, pack.gather_bf16
     before = rest_spmm.launches
-    out = rest_spmm(rp, re, c, v, x, case[7])
+    out = rest_spmm(rp, re, c, v, x, bf16)
     torch.cuda.synchronize()
     assert rest_spmm.launches == before + 1
     # the same terms of a row as the plain version, summed in another order
     counts = (re - rp[:-1])[:, None]
-    tol = 2.0 * counts * UNIT_ROUNDOFF * rest_spmm_plain(rp, re, c, v.abs(), x.abs(), case[7])
-    diff = (out - rest_spmm_plain(rp, re, c, v, x, case[7])).abs()
+    tol = 2.0 * counts * UNIT_ROUNDOFF * rest_spmm_plain(rp, re, c, v.abs(), x.abs(), bf16)
+    diff = (out - rest_spmm_plain(rp, re, c, v, x, bf16)).abs()
     assert bool((diff <= tol + 1e-30).all()), float(diff.max())
 
 
@@ -418,10 +501,11 @@ COO_CASES = [  # (n_rows, n_cols, f, kind)
     (200, 200, 64, "empty"),        # no entry at all (build_coo's one padded chunk)
     (260, 100, 130, "last_row"),    # 700 entries on row n_rows - 1; F = 130: a ragged tile
 ]
+COO_CARD_CASES = COO_CASES + ["headline_tail", "powerlaw_tail"]
 
 
 def _coo_id(case):
-    return "n{}_m{}_f{}_{}".format(*case)
+    return case if isinstance(case, str) else "n{}_m{}_f{}_{}".format(*case)
 
 
 def _coo_case(n_rows, n_cols, f, kind, seed=0):
@@ -463,8 +547,15 @@ def _coo_case(n_rows, n_cols, f, kind, seed=0):
 
 
 def _coo_tensors(case, device):
-    """A ``COO_CASES`` entry on ``device``; a ``"misaligned"`` case's x and
-    out are contiguous but 4 bytes off 16-byte alignment."""
+    """A ``COO_CARD_CASES`` entry on ``device``; a ``"misaligned"`` case's x
+    and out are contiguous but 4 bytes off 16-byte alignment; a full-size
+    hybrid pack's tail adds into random values, as into its ELL term's."""
+    if isinstance(case, str):
+        hyb, x = _full_hybrid(case.removesuffix("_tail"))
+        t = hyb.tail
+        out = np.random.default_rng(0).normal(size=(t.n_rows, x.shape[1])).astype(np.float32)
+        return (t.row.to(device), t.col.to(device), t.val.to(device), x.to(device),
+                torch.from_numpy(out).to(device), t.nnz)
     row, col, val, x, out, nnz = _coo_case(*case)
     if case[3] == "misaligned":
         x, out = _misaligned(x, device), _misaligned(out, device)
@@ -540,7 +631,7 @@ def _coo_tolerance(row, col, val, x, out, nnz):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", COO_CASES, ids=_coo_id)
+@pytest.mark.parametrize("case", COO_CARD_CASES, ids=_coo_id)
 def test_coo_accumulate_kernel_matches_plain(cuda_device, case):
     row, col, val, x, out, nnz = _coo_tensors(case, cuda_device)
     want = coo_accumulate_plain(row, col, val, x, out.clone(), nnz)
@@ -599,11 +690,11 @@ def _ell_grad_check(case, device):
     the same output gradient. Each sums a column's terms of A in its own
     order (the transposed pack summed duplicate slots once more): within
     ``2 (c + 1) u sum|v g|``, c the longest column."""
-    rows, n = case[:2]
     c, v, xx = _ell_tensors(case, device)
+    (rows, _), (n, f) = c.shape, xx.shape
     bwd = _transposed_ell(c.cpu().numpy(), v.cpu().numpy(), n).to(device)
     adj = sparse.DifferentiableAdj(sparse.ELLAdj(c, v, n_rows=rows, n_cols=n, row_block=1), bwd)
-    g = torch.from_numpy(np.random.default_rng(1).normal(size=(rows, case[3]))
+    g = torch.from_numpy(np.random.default_rng(1).normal(size=(rows, f))
                          .astype(np.float32)).to(device)
     x = xx.detach().requires_grad_()
     before = ell_spmm.launches
@@ -624,29 +715,37 @@ def test_ell_function_gradient_plain(case):
     _ell_grad_check(case, torch.device("cpu"))
 
 
+# at full size the headline pack only: a skewed graph's transposed ELL pack is as wide as its
+# longest column (the port takes the hybrid there, whose test follows)
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", ELL_CASES, ids=_ell_id)
+@pytest.mark.parametrize("case", ELL_CASES + ["headline"], ids=_ell_id)
 def test_ell_function_gradient_kernel(cuda_device, case):
     _ell_grad_check(case, cuda_device)
 
 
-def _hybrid_grad_check(r, f, device):
+def _hybrid_grad_check(r, f, device, graph="powerlaw"):
     """The naive path's hybrid adjacency of ``sym_norm(r)`` on a power-law
-    graph (hub rows give each pack a tail): the pack of A^T is the forward
-    pack itself exactly when A is symmetric (r = 0.5), and x's gradient
-    equals autograd through ``ell_spmm_plain`` and the tail's
+    graph of 3,000 nodes (hub rows give each pack a tail) or, ``graph="train"``,
+    on the SBM at ogbn-arxiv's size that the GCN trains on: the pack of A^T is the
+    forward pack itself exactly when A is symmetric (r = 0.5), and x's
+    gradient equals autograd through ``ell_spmm_plain`` and the tail's
     ``index_add``, within ``2 (c + 1) u (|A|^T |g|)``, c the most nonzeros
     of a row or column."""
-    from ssrg_torch.data.synthetic import powerlaw_graph
+    from ssrg_torch.data.synthetic import planetoid_like, powerlaw_graph
     from ssrg_torch.ops.normalize import sym_norm
 
-    adj = sym_norm(powerlaw_graph(3000, 8.0, 4, seed=0).adj, r)
+    if graph == "train":
+        g0 = planetoid_like(**card.TRAIN_GRAPH)
+    else:
+        g0 = powerlaw_graph(3000, 8.0, 4, seed=0)
+    adj = sym_norm(g0.adj, r)
+    n = adj.shape[0]
     dadj = sparse.differentiable_adjacency(adj, "hybrid", device=device)
     assert dadj.symmetric == (r == 0.5) == ((adj != adj.T).nnz == 0)
     assert int((dadj.fwd.tail.val != 0).sum()) > 0
     rng = np.random.default_rng(2)
-    x0 = torch.from_numpy(rng.normal(size=(3000, f)).astype(np.float32)).to(device)
-    g = torch.from_numpy(rng.normal(size=(3000, f)).astype(np.float32)).to(device)
+    x0 = torch.from_numpy(rng.normal(size=(n, f)).astype(np.float32)).to(device)
+    g = torch.from_numpy(rng.normal(size=(n, f)).astype(np.float32)).to(device)
     x = x0.clone().requires_grad_()
     before, before_coo = ell_spmm.launches, coo_accumulate.launches
     dadj.spmm(x).backward(g)
@@ -656,7 +755,7 @@ def _hybrid_grad_check(r, f, device):
         assert coo_accumulate.launches == before_coo + 2
     x_plain = x0.clone().requires_grad_()
     fwd, tail = dadj.fwd.ell, dadj.fwd.tail
-    out = ell_spmm_plain(fwd.cols, fwd.vals, x_plain)[:3000]
+    out = ell_spmm_plain(fwd.cols, fwd.vals, x_plain)[:n]
     out.index_add(0, tail.row, x_plain.index_select(0, tail.col) * tail.val[:, None]).backward(g)
     counts = max(np.diff(adj.tocsr().indptr).max(), np.diff(adj.tocsc().indptr).max())
     mag = torch.from_numpy((abs(adj).T @ np.abs(g.cpu().numpy().astype(np.float64)))
@@ -673,10 +772,11 @@ def test_hybrid_function_gradient_plain(r, f):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("graph", ["powerlaw", "train"])
 @pytest.mark.parametrize("r", [0.5, 0.3], ids=["symmetric", "asymmetric"])
 @pytest.mark.parametrize("f", [40, 256])
-def test_hybrid_function_gradient_kernel(cuda_device, r, f):
-    _hybrid_grad_check(r, f, cuda_device)
+def test_hybrid_function_gradient_kernel(cuda_device, r, f, graph):
+    _hybrid_grad_check(r, f, cuda_device, graph)
 
 
 def _phi_grad_check(f, device):

@@ -237,7 +237,9 @@ def test_records_lie_on_the_trace_clock(spans, tmp_path):
     """Each record's start and end, stamped just outside its annotation,
     against the annotation the exported Chrome trace holds: the record holds
     it, a few microseconds wider (5 us of slack for the two clocks), and the
-    median gap at either end is under 20 us."""
+    lower quartile of the gaps at either end is under 20 us. A preempted
+    worker widens some gaps, never narrows one, so the quartile holds under
+    load, while a record on another clock or base shifts every gap."""
     with logger.device_trace(str(tmp_path), device="cpu"):
         for _ in range(50):
             with logger.span("probe.outer"):
@@ -256,7 +258,7 @@ def test_records_lie_on_the_trace_clock(spans, tmp_path):
             starts.append(e["ts"] - r["start_us"])
             ends.append(r["end_us"] - (e["ts"] + e["dur"]))
     assert min(starts) > -5 and min(ends) > -5
-    assert statistics.median(starts) < 20 and statistics.median(ends) < 20
+    assert statistics.quantiles(starts)[0] < 20 and statistics.quantiles(ends)[0] < 20
 
 
 def hybrid_pair(n: int):
