@@ -2071,7 +2071,10 @@ GAT_EPOCH_LAUNCHES = {"gat_stats_kernel": 12, "gat_aggregate_kernel": 6,
                       # the scores: each layer's forward, and backward (the
                       # gradient, then the sum of da)
                       "gat_scores_kernel": 6, "gat_score_grad_kernel": 3,
-                      "gat_score_sum_kernel": 3}
+                      "gat_score_sum_kernel": 3,
+                      # heads of 128 and a last layer of 40: whole float4s a
+                      # head, so no launch takes the whole-row path
+                      "whole_row": 0}
 
 
 def gat_published_run(ds, tc) -> None:

@@ -57,19 +57,46 @@
 //   feature; a row that crosses segments is added once by each of them, so the
 //   softmax statistics of a split row are joined by the atomics of the stats
 //   kernel (max, then sum) before any weight is formed.
-// - A group is the narrowest of 8, 16 and 32 lanes whose tile (4 * kQuads floats a
-//   lane) holds one head's C features, so the head is the grid's slowest index
-//   (blockIdx.y) and a group's dalpha is a sum over its own lanes (shuffles, no
-//   atomics). float4 lanes when C % 4 == 0 and z, out, g and dz are 16-byte
-//   aligned; masked scalars otherwise (C = 47, the class count of the last layer).
-// - Each lane of a group loads one entry of the group's next kG, one round ahead,
-//   computes that entry's alpha (and, backward, the other per-entry values) and
-//   hands them to the group by shuffle; every lane requests kBatch rows before it
-//   adds any.
+// - Per head: a group is the narrowest of 8, 16 and 32 lanes whose tile (4 * kQuads
+//   floats a lane) holds one head's C features, so the head is the grid's slowest
+//   index (blockIdx.y) and a group's dalpha is a sum over its own lanes (shuffles,
+//   no atomics). float4 lanes when C % 4 == 0 and z, out, g and dz are 16-byte
+//   aligned; masked scalars otherwise.
+// - Whole row, where a head is not whole float4s but the row of H heads is (C = 47,
+//   the class count of the last layer: 4 x 47 = 188 floats, 752 bytes): per head,
+//   16 scalar lanes would issue four loads a lane for 188 bytes, fetch an entry's
+//   indices and statistics once a head, and touch 6-7 sectors for a head's slice
+//   (26-28 for the four, where the row needs 24-25). So a group of kRowG lanes (32
+//   for rows over 16 kRowG floats) gathers the whole row of an entry in float4
+//   lanes, at most 4 a lane, with no head on the grid; each float knows its head,
+//   as in gat_scores_kernel. The group's lanes are slots of kH lanes (the heads
+//   rounded up to 2, 4 or 8): lane kH s + h fetches head h's values of the round's
+//   entries s, s + kS, ... (the indices once a slot, s_src[j, h] and the row's
+//   statistics beside its neighbours'), and each float takes its head's weight
+//   from that lane by one shuffle. Backward, a run keeps z[j] as one masked copy
+//   per head, so each head's dalpha is a lane's multiply-adds, then one exchange
+//   that halves the heads a lane holds at each step leaves the group's sum of head
+//   h on the lanes kH s + h, which hold that entry's values: one ds_dst atomic a
+//   head and entry, ds_src summed in entry order by the lanes of slot 0, one
+//   atomic a head and run. The f32 sums of z and g keep their order; only
+//   dalpha's changes. Registers are capped so that an SM holds kRowBlocks blocks
+//   (row_blocks). Taken for at most kRowHeads heads and kRowFloats floats; every
+//   other shape keeps the per-head instances, C = 128 among them.
+// - Per head, each lane of a group loads one entry of the group's next kG, one
+//   round ahead, computes that entry's alpha (and, backward, the other per-entry
+//   values) and hands them to the group by shuffle; every lane requests kBatch rows
+//   (kRowBatch on whole rows) before it adds any.
 // - Only the order of the f32 sums differs from the plain version: a run's terms
 //   in entry order, the runs of one row in the order their atomics land.
 // The constants and the design were chosen by timing on the H100
-// (tools/gat_variants.py on the GAT cell's listing; PERF.md): no value of kSeg (128,
+// (tools/kernels.py on the GAT cell's listing; PERF.md). Whole rows at 4 heads of
+// 47, ms a weighted sum / backward pass: 39.82 / 52.51 against the per-head scalar
+// lanes' 61.35 / 84.81. 32-lane groups (2 float4s a lane) beat 16 (3 float4s;
+// 41.71 / 64.57), 8 entries a batch beat 4 and 16, and registers capped at 4 blocks
+// an SM beat 3 (39.86 / 57.58), no cap (39.79 / 57.24) and 5-8 (spills, up to 151 /
+// 214); one copy of z[j] with a select a head and float in place of the masked
+// copies took 39.82 / 55.08.
+// Per head: no value of kSeg (128,
 // 512), kBatch (2, 8) or kWarps (8) moved the weighted sum or the backward pass by 1 %;
 // the backward pass split into two launches (dz, then dalpha and the scores'
 // gradients, each gathering g) took 1.77 and 1.69 times as long (C = 128, 47); the
@@ -120,6 +147,17 @@ constexpr int kSeg = 256;      // entries of a group's segment
 constexpr int kBatch = 4;      // entries whose rows a lane requests before adding any
 constexpr unsigned kFull = 0xffffffffu;
 static_assert(kSeg % 32 == 0, "a segment is whole loads of a group's entries");
+
+// The whole-row path of the weighted sum and the backward pass:
+constexpr int kRowG = 32;        // lanes of a group for rows up to 16 kRowG floats (32 above)
+constexpr int kRowBatch = 8;     // entries whose rows a lane requests before adding any
+constexpr int kRowBlocks = 4;       // blocks an SM holds at once, at least: caps the registers
+constexpr int kRowLaneFloats = 96;  // of the instances whose lanes hold at most this (row_blocks)
+constexpr int kRowFloats = 512;  // the longest row the path takes (0: none)
+constexpr int kRowHeads = 8;     // the most heads the path takes
+struct WholeRow {};              // names the path in the kernels' instances
+static_assert(kRowG >= kRowHeads && kRowG <= 32 && kRowFloats <= 512 && kRowHeads <= 8,
+              "a group holds a slot of every head, and a row in at most 4 float4s a lane");
 
 __device__ __forceinline__ float leaky(float p, float slope) { return p > 0.f ? p : slope * p; }
 
@@ -449,6 +487,295 @@ gat_backward_kernel(const int32_t* __restrict__ t_row, const int32_t* __restrict
   }
 }
 
+// -- the whole-row path ------------------------------------------------------
+
+// The head of each of the lane's floats of a row laid out as load_tile's
+// float4 lanes lay it out (0 past the row's row_floats).
+template <int kG, int kQuads>
+__device__ __forceinline__ void row_heads(int gl, int row_floats, int c_head,
+                                          int (&hd)[4 * kQuads]) {
+#pragma unroll
+  for (int p = 0; p < kQuads; ++p) {
+#pragma unroll
+    for (int t = 0; t < 4; ++t) {
+      const int k = 4 * (kG * p + gl) + t;
+      hd[4 * p + t] = k < row_floats ? k / c_head : 0;
+    }
+  }
+}
+
+// part[h], h < kH: the lane's share of a sum of each head. Returns the group's
+// sum of head gl % kH. Each step halves the heads a lane holds: it keeps the
+// half its lane bit selects and adds its partner's share of that half; then the
+// kG / kH lanes that hold one head add theirs.
+template <int kG, int kH>
+__device__ __forceinline__ float group_head_sum(float (&part)[kH], int gl) {
+#pragma unroll
+  for (int n = kH / 2; n >= 1; n >>= 1) {
+    const bool upper = (gl & n) != 0;
+#pragma unroll
+    for (int i = 0; i < n; ++i) {
+      const float send = upper ? part[i] : part[i + n];
+      const float keep = upper ? part[i + n] : part[i];
+      part[i] = keep + __shfl_xor_sync(kFull, send, n);
+    }
+  }
+  float v = part[0];
+#pragma unroll
+  for (int o = kH; o < kG; o <<= 1) v += __shfl_xor_sync(kFull, v, o);
+  return v;
+}
+
+// The blocks an SM must hold of a whole-row instance: kRowBlocks (its registers
+// capped at 65536 / (kRowBlocks kThreads)) where a lane's rows of a batch and
+// copies of z (4 kQuads (kRowBatch + kH) floats) fit in kRowLaneFloats, as the GAT
+// cell's (4 heads of 47, 2 float4s a lane) do; above, the compiler's choice (1).
+template <int kQuads, int kH>
+constexpr int row_blocks() {
+  return 4 * kQuads * (kRowBatch + kH) <= kRowLaneFloats ? kRowBlocks : 1;
+}
+
+// The whole-row layout of a group: kS slots of kH lanes fetch a round's
+// kRowBatch entries, lane kH s + h head h's values of entries s, s + kS, ...
+template <int kG, int kH>
+struct RowRound {
+  static constexpr int kS = kG / kH < kRowBatch ? kG / kH : kRowBatch;  // slots that fetch
+  static constexpr int kU = kRowBatch / kS;                              // entries a lane fetches
+};
+
+// out[i, :] += alpha[e, h(f)] * z[j, :] over the entries, every head of a row at
+// once; out holds 0 on entry. A group of kG lanes sums one segment of kSeg
+// entries; float f of a row takes the weight of its head h(f).
+template <typename Path, int kG, int kQuads, int kH>
+__global__ void __launch_bounds__(kThreads, (row_blocks<kQuads, kH>()))
+gat_aggregate_kernel(const int32_t* __restrict__ row, const int32_t* __restrict__ col,
+                     const float* __restrict__ s_src, const float* __restrict__ s_dst,
+                     const float* __restrict__ m, const float* __restrict__ l,
+                     const float* __restrict__ z, float* __restrict__ out, int64_t nnz,
+                     int heads, int c_head, float slope, int64_t segments) {
+  constexpr int kLane = 4 * kQuads;
+  constexpr int kR = 32 / kG;
+  constexpr int kS = RowRound<kG, kH>::kS, kU = RowRound<kG, kH>::kU;
+  const int lane = threadIdx.x & 31;
+  const int gl = lane % kG;
+  const int base = lane - gl;
+  const int slot = gl / kH, h = gl % kH;
+  const bool fetcher = slot < kS && h < heads;
+  const int64_t seg0 = (static_cast<int64_t>(blockIdx.x) * kWarps + (threadIdx.x >> 5)) * kR;
+  if (seg0 >= segments) return;  // uniform across the warp
+  const int64_t e0 = (seg0 + lane / kG) * kSeg;
+  const int len = segment_length(e0, nnz);
+  const int most = __reduce_max_sync(kFull, len);
+  const int stride = heads * c_head;  // a row of z and out, whole float4s
+  int hd[kLane];
+  row_heads<kG, kQuads>(gl, stride, c_head, hd);
+
+  float acc[kLane];
+#pragma unroll
+  for (int k = 0; k < kLane; ++k) acc[k] = 0.f;
+  int cur = -1;  // the row of the run being summed
+
+  // this lane's entries of the group's next round, and head h's weights
+  int32_t r_next[kU], c_next[kU];
+  float w_next[kU];
+  auto fetch = [&](int c0) {
+#pragma unroll
+    for (int u = 0; u < kU; ++u) {
+      const int b = c0 + u * kS + slot;
+      r_next[u] = c_next[u] = 0;
+      w_next[u] = 0.f;
+      if (fetcher && b < len) {
+        r_next[u] = __ldcs(row + e0 + b);
+        c_next[u] = __ldcs(col + e0 + b);
+        const int64_t ri = static_cast<int64_t>(r_next[u]) * heads + h;
+        const float a = leaky(
+            __ldg(s_dst + ri) + __ldg(s_src + static_cast<int64_t>(c_next[u]) * heads + h), slope);
+        w_next[u] = expf(a - __ldg(m + ri)) / __ldg(l + ri);
+      }
+    }
+  };
+  fetch(0);
+  for (int c0 = 0; c0 < most; c0 += kRowBatch) {
+    const int n = len - c0;  // the group's entries left; <= 0 past its end
+    int32_t r[kU], c[kU];
+    float w[kU];
+#pragma unroll
+    for (int u = 0; u < kU; ++u) {
+      r[u] = r_next[u];
+      c[u] = c_next[u];
+      w[u] = w_next[u];
+    }
+    fetch(c0 + kRowBatch);
+    float g[kRowBatch][kLane];
+    int32_t rj[kRowBatch];
+#pragma unroll
+    for (int b = 0; b < kRowBatch; ++b) {
+      const int src = base + (b % kS) * kH;
+      const int32_t cj = __shfl_sync(kFull, c[b / kS], src);
+      rj[b] = __shfl_sync(kFull, r[b / kS], src);
+      load_tile<kG, true, kQuads>(z + static_cast<int64_t>(cj) * stride, gl, stride, b < n, g[b]);
+    }
+#pragma unroll
+    for (int b = 0; b < kRowBatch; ++b) {
+      const int src = base + (b % kS) * kH;
+      float wf[kLane];
+#pragma unroll
+      for (int k = 0; k < kLane; ++k) wf[k] = __shfl_sync(kFull, w[b / kS], src + hd[k]);
+      if (b < n) {  // uniform across the group
+        if (rj[b] != cur) {
+          if (cur >= 0) {
+            add_tile<kG, true, kQuads>(out + static_cast<int64_t>(cur) * stride, gl, stride, acc);
+          }
+          cur = rj[b];
+#pragma unroll
+          for (int k = 0; k < kLane; ++k) acc[k] = 0.f;
+        }
+#pragma unroll
+        for (int k = 0; k < kLane; ++k) acc[k] = fmaf(wf[k], g[b][k], acc[k]);
+      }
+    }
+  }
+  if (cur >= 0) {
+    add_tile<kG, true, kQuads>(out + static_cast<int64_t>(cur) * stride, gl, stride, acc);
+  }
+}
+
+// The backward pass over the transposed listing, every head of a row at once:
+// dz[j] += alpha * g[i], ds_src[j] += dpre, ds_dst[i] += dpre. dz, ds_src and
+// ds_dst hold 0 on entry.
+template <typename Path, int kG, int kQuads, int kH>
+__global__ void __launch_bounds__(kThreads, (row_blocks<kQuads, kH>()))
+gat_backward_kernel(const int32_t* __restrict__ t_row, const int32_t* __restrict__ t_col,
+                    const float* __restrict__ s_src, const float4* __restrict__ q,
+                    const float* __restrict__ z, const float* __restrict__ g,
+                    float* __restrict__ dz, float* __restrict__ ds_src,
+                    float* __restrict__ ds_dst, int64_t nnz, int heads, int c_head, float slope,
+                    int64_t segments) {
+  constexpr int kLane = 4 * kQuads;
+  constexpr int kR = 32 / kG;
+  constexpr int kS = RowRound<kG, kH>::kS, kU = RowRound<kG, kH>::kU;
+  const int lane = threadIdx.x & 31;
+  const int gl = lane % kG;
+  const int base = lane - gl;
+  const int slot = gl / kH, h = gl % kH;
+  const bool fetcher = slot < kS && h < heads;
+  const int64_t seg0 = (static_cast<int64_t>(blockIdx.x) * kWarps + (threadIdx.x >> 5)) * kR;
+  if (seg0 >= segments) return;  // uniform across the warp
+  const int64_t e0 = (seg0 + lane / kG) * kSeg;
+  const int len = segment_length(e0, nnz);
+  const int most = __reduce_max_sync(kFull, len);
+  const int stride = heads * c_head;
+  int hd[kLane];
+  row_heads<kG, kQuads>(gl, stride, c_head, hd);
+
+  float acc[kLane];     // the run's dz
+  float zh[kH][kLane];  // the run's z[j], each head's floats alone (0 elsewhere)
+#pragma unroll
+  for (int k = 0; k < kLane; ++k) {
+    acc[k] = 0.f;
+#pragma unroll
+    for (int x = 0; x < kH; ++x) zh[x][k] = 0.f;
+  }
+  float ds = 0.f;  // the run's ds_src[j, h], kept by the lanes of slot 0
+  int cur = -1;
+
+  // this lane's entries of the group's next round: source j, destination i, and
+  // head h's alpha, alpha times the LeakyReLU's slope at pre, and delta[i, h]
+  int32_t j_next[kU], i_next[kU];
+  float w_next[kU], ws_next[kU], d_next[kU];
+  auto fetch = [&](int c0) {
+#pragma unroll
+    for (int u = 0; u < kU; ++u) {
+      const int b = c0 + u * kS + slot;
+      j_next[u] = i_next[u] = 0;
+      w_next[u] = ws_next[u] = d_next[u] = 0.f;
+      if (fetcher && b < len) {
+        j_next[u] = __ldcs(t_row + e0 + b);
+        i_next[u] = __ldcs(t_col + e0 + b);
+        const float4 qi = __ldg(q + static_cast<int64_t>(i_next[u]) * heads + h);
+        const float p = qi.x + __ldg(s_src + static_cast<int64_t>(j_next[u]) * heads + h);
+        w_next[u] = expf(leaky(p, slope) - qi.y) / qi.z;
+        ws_next[u] = p > 0.f ? w_next[u] : w_next[u] * slope;
+        d_next[u] = qi.w;
+      }
+    }
+  };
+  fetch(0);
+  for (int c0 = 0; c0 < most; c0 += kRowBatch) {
+    const int n = len - c0;
+    int32_t jr[kU], ir[kU];
+    float w[kU], ws[kU], dl[kU];
+#pragma unroll
+    for (int u = 0; u < kU; ++u) {
+      jr[u] = j_next[u];
+      ir[u] = i_next[u];
+      w[u] = w_next[u];
+      ws[u] = ws_next[u];
+      dl[u] = d_next[u];
+    }
+    fetch(c0 + kRowBatch);
+    float gi[kRowBatch][kLane];
+    int32_t rj[kRowBatch];
+#pragma unroll
+    for (int b = 0; b < kRowBatch; ++b) {
+      const int src = base + (b % kS) * kH;
+      const int32_t ij = __shfl_sync(kFull, ir[b / kS], src);
+      rj[b] = __shfl_sync(kFull, jr[b / kS], src);
+      load_tile<kG, true, kQuads>(g + static_cast<int64_t>(ij) * stride, gl, stride, b < n, gi[b]);
+    }
+#pragma unroll
+    for (int b = 0; b < kRowBatch; ++b) {
+      const int s = b % kS, u = b / kS;
+      const int src = base + s * kH;
+      const bool valid = b < n;  // uniform across the group
+      float wf[kLane];
+#pragma unroll
+      for (int k = 0; k < kLane; ++k) wf[k] = __shfl_sync(kFull, w[u], src + hd[k]);
+      if (valid && rj[b] != cur) {
+        if (cur >= 0) {
+          add_tile<kG, true, kQuads>(dz + static_cast<int64_t>(cur) * stride, gl, stride, acc);
+          if (gl < heads) atomicAdd(ds_src + static_cast<int64_t>(cur) * heads + gl, ds);
+        }
+        cur = rj[b];
+        float zr[kLane];
+        load_tile<kG, true, kQuads>(z + static_cast<int64_t>(cur) * stride, gl, stride, true, zr);
+#pragma unroll
+        for (int k = 0; k < kLane; ++k) {
+          acc[k] = 0.f;
+#pragma unroll
+          for (int x = 0; x < kH; ++x) zh[x][k] = hd[k] == x ? zr[k] : 0.f;
+        }
+        ds = 0.f;
+      }
+      // dalpha = <g[i, h, :], z[j, h, :]> of each head, summed over the group's
+      // lanes (every lane of the warp takes part; a group past its entries sums
+      // zeros); lane kH s + h holds the entry's values of head h
+      float part[kH];
+#pragma unroll
+      for (int x = 0; x < kH; ++x) {
+        part[x] = 0.f;
+#pragma unroll
+        for (int k = 0; k < kLane; ++k) part[x] = fmaf(gi[b][k], zh[x][k], part[x]);
+      }
+      const float da = group_head_sum<kG, kH>(part, gl);
+      const float dpre = ws[u] * (da - dl[u]);
+      const float dp = __shfl_sync(kFull, dpre, src + h);  // the entry's dpre of head h
+      if (valid) {
+        if (slot == s && h < heads) {
+          atomicAdd(ds_dst + static_cast<int64_t>(ir[u]) * heads + h, dpre);
+        }
+        if (slot == 0) ds += dp;
+#pragma unroll
+        for (int k = 0; k < kLane; ++k) acc[k] = fmaf(wf[k], gi[b][k], acc[k]);
+      }
+    }
+  }
+  if (cur >= 0) {
+    add_tile<kG, true, kQuads>(dz + static_cast<int64_t>(cur) * stride, gl, stride, acc);
+    if (gl < heads) atomicAdd(ds_src + static_cast<int64_t>(cur) * heads + gl, ds);
+  }
+}
+
 // The grid of a segmented kernel: blocks over the segments, the heads on y.
 inline bool segment_grid(int64_t nnz, int kg, int heads, dim3& grid, int64_t& segments) {
   segments = (nnz + kSeg - 1) / kSeg;
@@ -497,6 +824,70 @@ int launch_backward(const int32_t* t_row, const int32_t* t_col, const float* s_s
         t_row, t_col, s_src, q, z, g, dz, ds_src, ds_dst, nnz, heads, c_head, slope, segments);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+template <int kG, int kQuads, int kH>
+struct RowAggregate {
+  static int run(const int32_t* row, const int32_t* col, const float* s_src,
+                 const float* s_dst, const float* m, const float* l, const float* z,
+                 float* out, int64_t nnz, int heads, int c_head, float slope,
+                 cudaStream_t stream) {
+    dim3 grid;
+    int64_t segments;
+    if (!segment_grid(nnz, kG, 1, grid, segments)) {
+      return static_cast<int>(cudaErrorInvalidConfiguration);
+    }
+    gat_aggregate_kernel<WholeRow, kG, kQuads, kH><<<grid, kThreads, 0, stream>>>(
+        row, col, s_src, s_dst, m, l, z, out, nnz, heads, c_head, slope, segments);
+    return static_cast<int>(cudaGetLastError());
+  }
+};
+
+template <int kG, int kQuads, int kH>
+struct RowBackward {
+  static int run(const int32_t* t_row, const int32_t* t_col, const float* s_src,
+                 const float4* q, const float* z, const float* g, float* dz, float* ds_src,
+                 float* ds_dst, int64_t nnz, int heads, int c_head, float slope,
+                 cudaStream_t stream) {
+    dim3 grid;
+    int64_t segments;
+    if (!segment_grid(nnz, kG, 1, grid, segments)) {
+      return static_cast<int>(cudaErrorInvalidConfiguration);
+    }
+    gat_backward_kernel<WholeRow, kG, kQuads, kH><<<grid, kThreads, 0, stream>>>(
+        t_row, t_col, s_src, q, z, g, dz, ds_src, ds_dst, nnz, heads, c_head, slope, segments);
+    return static_cast<int>(cudaGetLastError());
+  }
+};
+
+// The whole-row instance for a row of row4 float4s (at most 128): kRowG lanes
+// of at most 4 float4s each, 32 lanes above; heads rounded up to 2, 4 or 8.
+template <template <int, int, int> class Launch, int kH, typename... Args>
+int dispatch_row_quads(int row4, Args... args) {
+  if (row4 <= kRowG) return Launch<kRowG, 1, kH>::run(args...);
+  if (row4 <= 2 * kRowG) return Launch<kRowG, 2, kH>::run(args...);
+  if (row4 <= 3 * kRowG) return Launch<kRowG, 3, kH>::run(args...);
+  if (row4 <= 4 * kRowG) return Launch<kRowG, 4, kH>::run(args...);
+  return row4 <= 96 ? Launch<32, 3, kH>::run(args...) : Launch<32, 4, kH>::run(args...);
+}
+
+template <template <int, int, int> class Launch, typename... Args>
+int dispatch_row(int heads, int row4, Args... args) {
+  if (heads <= 2) return dispatch_row_quads<Launch, 2>(row4, args...);
+  if (heads <= 4) return dispatch_row_quads<Launch, 4>(row4, args...);
+  return dispatch_row_quads<Launch, 8>(row4, args...);
+}
+
+// The entries' layout argument.
+constexpr int kLayoutScalar = 0, kLayoutVec4 = 1, kLayoutRow = 2;
+
+// Whether the kernels take a layout for the shape: float4 lanes a head need
+// heads of whole float4s, the whole row rows of whole float4s and at most
+// kRowHeads heads.
+inline bool layout_ok(int layout, int heads, int c_head) {
+  if (layout == kLayoutVec4) return c_head % 4 == 0;
+  if (layout == kLayoutRow) return heads <= kRowHeads && (heads * c_head) % 4 == 0;
+  return layout == kLayoutScalar;
 }
 
 // -- the scores ------------------------------------------------------------
@@ -791,10 +1182,13 @@ inline bool score_chunks(int64_t n_rows, int heads, int c_head, int aligned, int
 
 // All pointers contiguous on the current device; every index must lie in [0, n).
 // row, col int32 [nnz] sorted by row; s_src, s_dst, m, l f32 [n, heads]; z, out,
-// g, dz f32 [n, heads, c_head]; q float4 [n, heads]. vec4 != 0 asks for the
-// float4 path: the caller guarantees c_head % 4 == 0 and 16-byte aligned z, out
-// (forward), z, g and dz (backward). c_head is at most 512. Each entry launches on
-// `stream` and returns cudaGetLastError() (0 on success); none synchronizes.
+// g, dz f32 [n, heads, c_head]; q float4 [n, heads]. c_head is at most 512.
+// layout picks the weighted sum's and the backward pass's lanes: 0 one group a
+// head, scalar; 1 one group a head, float4 (c_head % 4 == 0); 2 one group every
+// head of a row (heads * c_head % 4 == 0, heads at most kRowHeads; a row longer
+// than kRowFloats floats takes layout 0). For 1 and 2 the caller guarantees
+// 16-byte aligned z, out (forward), z, g and dz (backward). Each entry launches
+// on `stream` and returns cudaGetLastError() (0 on success); none synchronizes.
 
 // m must hold -inf and l 0: two launches, the maxima then the sums.
 extern "C" int gat_stats_f32(const int32_t* row, const int32_t* col, const float* s_src,
@@ -816,9 +1210,15 @@ extern "C" int gat_stats_f32(const int32_t* row, const int32_t* col, const float
 extern "C" int gat_aggregate_f32(const int32_t* row, const int32_t* col, const float* s_src,
                                  const float* s_dst, const float* m, const float* l,
                                  const float* z, float* out, int64_t nnz, int heads,
-                                 int c_head, float slope, int vec4, cudaStream_t stream) {
-  if (nnz <= 0 || heads <= 0 || c_head <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  const bool v = vec4 != 0;
+                                 int c_head, float slope, int layout, cudaStream_t stream) {
+  if (nnz <= 0 || heads <= 0 || c_head <= 0 || !layout_ok(layout, heads, c_head)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (layout == kLayoutRow && heads * c_head <= kRowFloats) {
+    return dispatch_row<RowAggregate>(heads, heads * c_head / 4, row, col, s_src, s_dst, m, l, z,
+                                      out, nnz, heads, c_head, slope, stream);
+  }
+  const bool v = layout == kLayoutVec4;
   if (c_head <= 32) return launch_aggregate<8, 1>(row, col, s_src, s_dst, m, l, z, out, nnz, heads, c_head, slope, v, stream);
   if (c_head <= 64) return launch_aggregate<16, 1>(row, col, s_src, s_dst, m, l, z, out, nnz, heads, c_head, slope, v, stream);
   if (c_head <= 128) return launch_aggregate<32, 1>(row, col, s_src, s_dst, m, l, z, out, nnz, heads, c_head, slope, v, stream);
@@ -843,9 +1243,15 @@ extern "C" int gat_rowdot_f32(const float* g, const float* out, const float* s_d
 extern "C" int gat_backward_f32(const int32_t* t_row, const int32_t* t_col, const float* s_src,
                                 const float4* q, const float* z, const float* g, float* dz,
                                 float* ds_src, float* ds_dst, int64_t nnz, int heads,
-                                int c_head, float slope, int vec4, cudaStream_t stream) {
-  if (nnz <= 0 || heads <= 0 || c_head <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  const bool v = vec4 != 0;
+                                int c_head, float slope, int layout, cudaStream_t stream) {
+  if (nnz <= 0 || heads <= 0 || c_head <= 0 || !layout_ok(layout, heads, c_head)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (layout == kLayoutRow && heads * c_head <= kRowFloats) {
+    return dispatch_row<RowBackward>(heads, heads * c_head / 4, t_row, t_col, s_src, q, z, g, dz,
+                                     ds_src, ds_dst, nnz, heads, c_head, slope, stream);
+  }
+  const bool v = layout == kLayoutVec4;
   if (c_head <= 32) return launch_backward<8, 1>(t_row, t_col, s_src, q, z, g, dz, ds_src, ds_dst, nnz, heads, c_head, slope, v, stream);
   if (c_head <= 64) return launch_backward<16, 1>(t_row, t_col, s_src, q, z, g, dz, ds_src, ds_dst, nnz, heads, c_head, slope, v, stream);
   if (c_head <= 128) return launch_backward<32, 1>(t_row, t_col, s_src, q, z, g, dz, ds_src, ds_dst, nnz, heads, c_head, slope, v, stream);

@@ -33,7 +33,22 @@ with chunked gathers and ``index_add_``. There is no other path: a CUDA tensor
 launches the kernels or raises. The forward pass is the span ``attn`` and
 the backward pass, on the autograd thread, ``attn.bwd``, both timed on the
 stream while a profiler runs; they count ``attn.edges`` (entries),
-``attn.heads`` and ``attn.launches`` (kernel launches; 0 on the CPU).
+``attn.heads``, ``attn.launches`` (kernel launches; 0 on the CPU) and
+``attn.row_launches`` (those of the whole-row path).
+
+The weighted sum and the backward pass take one of two layouts on a card,
+by the shape (:func:`layout`). Per head: a group of lanes gathers one
+head's C features of an entry's row, the head on the grid's y, in float4
+lanes where a head is whole float4s (C = 128). Whole row: where a head is
+not whole float4s (C = 47, the last layer's classes) but the row of all H
+heads is (H C % 4 == 0), holds at most ``ROW_MAX_HEADS`` heads and
+``ROW_MAX_FLOATS`` floats, and z, out, g and dz are 16-byte aligned, a
+group gathers the whole row in float4 lanes, each float taking its head's
+weight, and fetches an entry's indices and statistics once for all heads.
+The path's constants (32-lane groups, 8 entries requested before any is
+added, registers capped so that an SM holds 4 blocks) were chosen by timing
+``tools/kernels.py``'s variants on the GAT cell's listing (``PERF.md``). Its
+launches count by name in ``gat_attention.kernel_launches[ROW_PATH]``.
 
 ``gat_scores(z, a_src, a_dst)`` computes the scores the attention takes,
 ``s_src[n, h] = <z[n, h, :], a_src[h, :]>`` and ``s_dst`` likewise, with
@@ -64,6 +79,14 @@ from ssrg_torch.ops import _nvcc
 NAME = "gat_attention"
 # the widest head the kernels take (a group's tile: 32 lanes of 16 floats)
 MAX_HEAD_WIDTH = 512
+# the whole-row path: the longest row (heads times width) and the most heads
+# it takes (csrc: kRowFloats, kRowHeads)
+ROW_MAX_FLOATS = 512
+ROW_MAX_HEADS = 8
+# the layouts of the weighted sum and the backward pass (csrc: the entries'
+# layout argument), and the whole-row path's key in kernel_launches
+PER_HEAD_SCALAR, PER_HEAD_FLOAT4, WHOLE_ROW = 0, 1, 2
+ROW_PATH = "whole_row"
 # entries the plain versions gather at once
 CHUNK = 1 << 18
 # kernel launches of a forward and of a backward pass on a card
@@ -127,6 +150,30 @@ def _launch(entry: str, *args) -> None:
 
 def _aligned(*tensors: torch.Tensor) -> int:
     return int(all(t.data_ptr() % 16 == 0 for t in tensors))
+
+
+def layout(heads: int, c_head: int, aligned: bool) -> int:
+    """The layout of the weighted sum and the backward pass for ``heads``
+    heads of ``c_head`` features, ``aligned`` when z, out, g and dz are
+    16-byte aligned: ``WHOLE_ROW`` where a head is not whole float4s but
+    the row is and the path holds it, else per head, ``PER_HEAD_FLOAT4``
+    where a head is whole float4s and ``PER_HEAD_SCALAR`` otherwise."""
+    if not aligned:
+        return PER_HEAD_SCALAR
+    if c_head % 4 == 0:
+        return PER_HEAD_FLOAT4
+    if ((heads * c_head) % 4 == 0 and heads <= ROW_MAX_HEADS
+            and heads * c_head <= ROW_MAX_FLOATS):
+        return WHOLE_ROW
+    return PER_HEAD_SCALAR
+
+
+def _layout(z: torch.Tensor, *tensors: torch.Tensor) -> int:
+    """:func:`layout` for ``z`` and the step's other ``[N, H, C]`` operands,
+    a whole-row launch counted under ``ROW_PATH``."""
+    lay = layout(z.shape[1], z.shape[2], bool(_aligned(z, *tensors)))
+    gat_attention.kernel_launches[ROW_PATH] += lay == WHOLE_ROW
+    return lay
 
 
 def _leaky(p: torch.Tensor, slope: float) -> torch.Tensor:
@@ -221,8 +268,7 @@ def aggregate(row, col, s_src, s_dst, m, l, z, nnz: int, slope: float) -> torch.
         with torch.cuda.device(z.device):
             _launch("gat_aggregate_f32", row.data_ptr(), col.data_ptr(), s_src.data_ptr(),
                     s_dst.data_ptr(), m.data_ptr(), l.data_ptr(), z.data_ptr(), out.data_ptr(),
-                    nnz, h, c, slope, int(c % 4 == 0) & _aligned(z, out),
-                    _nvcc.stream_of(z))
+                    nnz, h, c, slope, _layout(z, out), _nvcc.stream_of(z))
     return out
 
 
@@ -280,7 +326,7 @@ def backward(t_row, t_col, q, s_src, z, g, nnz: int, slope: float):
         with torch.cuda.device(z.device):
             _launch("gat_backward_f32", t_row.data_ptr(), t_col.data_ptr(), s_src.data_ptr(),
                     q.data_ptr(), z.data_ptr(), g.data_ptr(), dz.data_ptr(), ds_src.data_ptr(),
-                    ds_dst.data_ptr(), nnz, h, c, slope, int(c % 4 == 0) & _aligned(z, g, dz),
+                    ds_dst.data_ptr(), nnz, h, c, slope, _layout(z, g, dz),
                     _nvcc.stream_of(z))
     return dz, ds_src, ds_dst
 
@@ -300,11 +346,11 @@ class _GATAttention(torch.autograd.Function):
         e = ctx.edges
         with span("attn.bwd", device=True):
             _counts(e, z)
-            launches = gat_attention.launches
+            before = _launches()
             g = grad_out.contiguous()
             q = rowdot(g, out, s_dst, m, l)
             dz, ds_src, ds_dst = backward(e.t_row, e.t_col, q, s_src, z, g, e.nnz, ctx.slope)
-            count("attn.launches", gat_attention.launches - launches)
+            _count_launches(before)
         return dz, ds_src, ds_dst, None, None
 
 
@@ -313,13 +359,24 @@ def _counts(edges, z) -> None:
     count("attn.heads", int(z.shape[1]))
 
 
+def _launches() -> Tuple[int, int]:
+    return gat_attention.launches, gat_attention.kernel_launches[ROW_PATH]
+
+
+def _count_launches(before: Tuple[int, int]) -> None:
+    """``attn.launches`` and ``attn.row_launches`` since ``before``."""
+    now = _launches()
+    count("attn.launches", now[0] - before[0])
+    count("attn.row_launches", now[1] - before[1])
+
+
 def _forward(z, s_src, s_dst, edges, slope):
     with span("attn", device=True):
         _counts(edges, z)
-        launches = gat_attention.launches
+        before = _launches()
         m, l = softmax_stats(edges.row, edges.col, s_src, s_dst, edges.nnz, slope)
         out = aggregate(edges.row, edges.col, s_src, s_dst, m, l, z, edges.nnz, slope)
-        count("attn.launches", gat_attention.launches - launches)
+        _count_launches(before)
     return out, m, l
 
 
@@ -454,5 +511,6 @@ def gat_scores(z: torch.Tensor, a_src: torch.Tensor, a_dst: torch.Tensor
 
 
 gat_attention.launches = 0
-gat_attention.kernel_launches = dict.fromkeys((k for ks in KERNELS.values() for k in ks), 0)
+gat_attention.kernel_launches = dict.fromkeys([*(k for ks in KERNELS.values() for k in ks),
+                                               ROW_PATH], 0)
 gat_scores.launches = 0

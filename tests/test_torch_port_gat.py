@@ -303,7 +303,7 @@ def test_baseline_task_takes_the_published_options(data):
     # 2 epochs: 3 layers forward in training and evaluation, 3 backward
     assert spans["attn"]["calls"] == 12 and spans["attn.bwd"]["calls"] == 6
     assert counts["attn.edges"] == 18 * task.adj_op.nnz and counts["attn.heads"] == 18 * 4
-    assert counts["attn.launches"] == 0
+    assert counts["attn.launches"] == 0 and counts["attn.row_launches"] == 0
 
     plain = BaselineTask(_dataset(data), "gat", TrainingConfig(num_epochs=1), hidden_dim=4,
                          run=False, device="cpu")
@@ -471,6 +471,32 @@ def test_the_score_reader_sums_the_score_spans(monkeypatch):
     assert reader.read(view, {}) is None
 
 
+@pytest.mark.parametrize("h,c,aligned,want", [
+    (4, 47, True, ga.WHOLE_ROW),         # the GAT cell's last layer
+    (2, 30, True, ga.WHOLE_ROW),         # a 60-float row, heads of 30
+    (8, 47, True, ga.WHOLE_ROW),         # 376 floats
+    (4, 127, True, ga.WHOLE_ROW),        # 508 floats, the longest such row the path holds
+    (1, 47, True, ga.PER_HEAD_SCALAR),   # a row that is not whole float4s
+    (4, 47, False, ga.PER_HEAD_SCALAR),  # an operand not 16-byte aligned
+    (12, 47, True, ga.PER_HEAD_SCALAR),  # more heads than the path holds
+    (8, 66, True, ga.PER_HEAD_SCALAR),   # 528 floats, longer than the path holds
+    (4, 128, True, ga.PER_HEAD_FLOAT4),  # the hidden layers: heads of whole float4s
+    (4, 128, False, ga.PER_HEAD_SCALAR),
+    (1, 16, True, ga.PER_HEAD_FLOAT4),
+])
+def test_the_layout_follows_the_shape_and_the_alignment(h, c, aligned, want):
+    """The whole-row path takes heads that are not whole float4s in rows
+    that are, up to the path's heads and floats, when every operand is
+    16-byte aligned; every other shape keeps the per-head lanes it had. The
+    bounds are the kernel source's own constants."""
+    assert ga.layout(h, c, aligned) == want
+    with open(os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                           "ssrg_torch", "csrc", "gat_attention.cu")) as f:
+        src = f.read()
+    for const, value in (("kRowFloats", ga.ROW_MAX_FLOATS), ("kRowHeads", ga.ROW_MAX_HEADS)):
+        assert f"constexpr int {const} = {value};" in src
+
+
 # -- on a card -----------------------------------------------------------------
 
 
@@ -483,10 +509,13 @@ def cuda_device():
 
 CARD_CASES = [  # (nodes, hub degree, heads, head width)
     (3000, 2000, 4, 128),   # float4 lanes, a hub of 8 segments
-    (3000, 2000, 4, 47),    # scalar lanes, heads that straddle float4s
+    (3000, 2000, 4, 47),    # whole rows: heads that straddle float4s, 3 float4s a lane
     (2000, 700, 1, 16),     # one head, groups of 8 lanes
     (2000, 700, 2, 300),    # 16 floats a lane
     (2000, 300, 3, 64),     # groups of 16 lanes
+    (2000, 700, 2, 30),     # whole rows of 60 floats, heads of 30
+    (2000, 700, 8, 47),     # whole rows of 376 floats, groups of 32 lanes
+    (2000, 700, 1, 47),     # scalar lanes: a row that is not whole float4s
 ]
 # and at full size: the power-law graph at ogbn-arxiv's 169,343 nodes (its
 # attention listing, about 2.3 M entries), at the GAT cell's head widths
@@ -540,8 +569,9 @@ def test_kernels_match_their_plain_versions(cuda_device, case):
                                                  grad, nnz, slope)
     torch.cuda.synchronize()
     moved = {k: v - named[k] for k, v in ga.gat_attention.kernel_launches.items() if v != named[k]}
+    row = {ga.ROW_PATH: 2} if ga.layout(*z.shape[1:], True) == ga.WHOLE_ROW else {}
     assert moved == {"gat_stats_kernel": 2, "gat_aggregate_kernel": 1, "gat_rowdot_kernel": 1,
-                     "gat_backward_kernel": 1}
+                     "gat_backward_kernel": 1, **row}
     assert torch.equal(q[..., :3], torch.stack([s_dst, m, l], dim=-1))
     assert torch.equal(m, m_p)          # a maximum is exact in any order
     assert _gap(l, l_p) <= 1e-5
@@ -549,6 +579,43 @@ def test_kernels_match_their_plain_versions(cuda_device, case):
     assert _gap(q, q_p) <= 1e-5
     for got, want in ((dz, dz_p), (ds_src, ds_src_p), (ds_dst, ds_dst_p)):
         assert _gap(got, want) <= 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case,offset", [(CARD_CASES[1], 0), (CARD_CASES[5], 0),
+                                         (CARD_CASES[6], 0), (CARD_CASES[7], 0),
+                                         (CARD_CASES[1], 1), (CARD_CASES[0], 0)],
+                         ids=["h4_c47", "h2_c30", "h8_c47", "h1_c47", "h4_c47_unaligned",
+                              "h4_c128"])
+def test_the_whole_row_path_where_the_shape_allows_it(cuda_device, case, offset):
+    """Forward and backward through the autograd function, z starting
+    ``offset`` floats into its storage (1: not 16-byte aligned): the output
+    and the gradients those of the plain versions on the CPU, and
+    ``attn.row_launches`` 2 (the weighted sum and the backward pass) where
+    the layout is the whole row, 0 elsewhere, beside the 5 launches."""
+    edges, z, s_src, s_dst, grad = _card_inputs(case, cuda_device)
+    n, h, c = z.shape
+    storage = torch.zeros(n * h * c + offset, device=cuda_device)
+    storage[offset:] = z.reshape(-1)
+    storage.requires_grad_(True)
+    zv = storage[offset:].view(n, h, c)
+    leaves = [s_src.clone().requires_grad_(True), s_dst.clone().requires_grad_(True)]
+    reset_spans()
+    out = ga.gat_attention(zv, *leaves, edges)
+    out.backward(grad)
+    torch.cuda.synchronize()
+    counts = counter_totals()
+    rows = 2 if ga.layout(h, c, offset == 0) == ga.WHOLE_ROW else 0
+    assert counts["attn.launches"] == ga.FORWARD_LAUNCHES + ga.BACKWARD_LAUNCHES
+    assert counts["attn.row_launches"] == rows
+    assert rows == 2 * (offset == 0 and c % 4 != 0 and h * c % 4 == 0)
+
+    cpu = [t.detach().cpu().requires_grad_(True) for t in (z, s_src, s_dst)]
+    want = ga.gat_attention(*cpu, edges.to("cpu"))
+    want.backward(grad.cpu())
+    assert _gap(out.detach().cpu(), want.detach()) <= 1e-5
+    for got, leaf in zip((storage.grad[offset:].view(n, h, c), *(t.grad for t in leaves)), cpu):
+        assert _gap(got.cpu(), leaf.grad) <= 1e-4
 
 
 @pytest.mark.cuda

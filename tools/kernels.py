@@ -40,8 +40,10 @@ gathers; ``gat`` with ``--parts attention`` the four attention steps
 graph's attention listing and the ``gat-products-fullbatch`` cell's, with
 ``--parts scores`` the score steps (``scores``, ``score_grad``) on a z of
 each graph's rows, all at the cell's head widths, 4 heads of 128 and 4 of
-47. The ``aggregate`` records also time the aggregation on the ELL and COO
-kernels, alpha as their values, one head at a time (``reuse_hybrid_kernels``).
+47. At 4 heads of 47 the source's weighted sum and backward pass take the
+whole-row path and the ``per_head`` variant the per-head scalar lanes. The
+``aggregate`` records also time the aggregation on the ELL and COO kernels,
+alpha as their values, one head at a time (``reuse_hybrid_kernels``).
 
 The wrappers launch the source's own constants; this script only measures
 that choice. Without a CUDA card it exits 2.
@@ -575,9 +577,16 @@ KERNELS = {
                                      ("kTcWideFeatures=128", {"kTcWideFeatures": 128})),
                      banded_cases),
     "rest": Kernel("rest_spmm", (("source", {}),), rest_cases),
+    # per_head: no row on the whole-row path, so the weighted sum and the
+    # backward pass at 4 heads of 47 take the per-head scalar lanes
     "gat": Kernel("gat_attention", (("source", {}), ("kBatch=2", {"kBatch": 2}),
                                     ("kBatch=8", {"kBatch": 8}), ("kSeg=128", {"kSeg": 128}),
-                                    ("kSeg=512", {"kSeg": 512}), ("kWarps=8", {"kWarps": 8})),
+                                    ("kSeg=512", {"kSeg": 512}), ("kWarps=8", {"kWarps": 8}),
+                                    ("per_head", {"kRowFloats": 0}),
+                                    ("kRowG=16", {"kRowG": 16}),
+                                    ("kRowBatch=4", {"kRowBatch": 4}),
+                                    ("kRowBlocks=1", {"kRowBlocks": 1}),
+                                    ("kRowBlocks=3", {"kRowBlocks": 3})),
                   gat_cases, rounds=2, plain_timing={"iters": 1, "warmup": 1}),
 }
 
