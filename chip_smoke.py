@@ -14,7 +14,8 @@ Phases, each printing JSON lines:
               timed, beside the OpenMP thread count.
    kernels  — every kernel of ``tools/kernels.py``'s table (ELL, COO,
               banded on both paths, rest, the GAT attention and score
-              steps) with the source's own constants, on each of the
+              steps, the per-edge steps of UniMP's attention on its cell's
+              listing) with the source's own constants, on each of the
               table's cases: each step held to its plain version within
               the kernel's sum-order tolerance, then timed beside it, a
               library call and its bound (the tool's records).
@@ -340,7 +341,7 @@ def phase_kernels() -> list:
     import kernels as table  # tools/kernels.py
     from ssrg_torch.ops import _nvcc
 
-    args = argparse.Namespace(seed=SEED, parts="attention,scores")
+    args = argparse.Namespace(seed=SEED, parts="attention,scores,edges")
     summary = []
     for key, kernel in table.KERNELS.items():
         module = importlib.import_module(f"ssrg_torch.ops.{kernel.module}")
@@ -2074,7 +2075,9 @@ GAT_EPOCH_LAUNCHES = {"gat_stats_kernel": 12, "gat_aggregate_kernel": 6,
                       "gat_score_sum_kernel": 3,
                       # heads of 128 and a last layer of 40: whole float4s a
                       # head, so no launch takes the whole-row path
-                      "whole_row": 0}
+                      "whole_row": 0,
+                      # the per-edge scores are UniMP's, not GAT's
+                      "sddmm_kernel": 0}
 
 
 def gat_published_run(ds, tc) -> None:

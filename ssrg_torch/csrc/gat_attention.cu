@@ -89,7 +89,7 @@
 // - Only the order of the f32 sums differs from the plain version: a run's terms
 //   in entry order, the runs of one row in the order their atomics land.
 // The constants and the design were chosen by timing on the H100
-// (tools/kernels.py on the GAT cell's listing; PERF.md). Whole rows at 4 heads of
+// (tools/kernels.py, its gat entry, on the GAT cell's listing; PERF.md). Whole rows at 4 heads of
 // 47, ms a weighted sum / backward pass: 39.82 / 52.51 against the per-head scalar
 // lanes' 61.35 / 84.81. 32-lane groups (2 float4s a lane) beat 16 (3 float4s;
 // 41.71 / 64.57), 8 entries a batch beat 4 and 16, and registers capped at 4 blocks
@@ -135,6 +135,41 @@
 //   same bits: each lane keeps its floats' sums over its warp's rows, a block
 //   sums its warps' in warp order into its own partial row, and
 //   gat_score_sum_kernel sums the blocks' partial rows in block order.
+//
+// Per-edge scores and dropped weights (UniMP's graph-transformer attention, PyG's
+// TransformerConv; and GAT with its weights dropped). With q, k, v = [N, H, C] and a
+// mask M = [H, E] of the entries e of the row listing (1 kept, 0 dropped; none at a
+// rate of 0), keep = 1 / (1 - rate):
+//
+//   s[h, e]      = scale * <q[i, h, :], k[j, h, :]>                       (sddmm_kernel)
+//   alpha[e, h]  = exp(s - m[i, h]) / l[i, h],  alpha~ = alpha * M * keep
+//   out[i, h, :] = sum over i's entries of alpha~ * v[j, h, :]
+//
+// and backward, given g, with delta[i, h] = <g[i, h, :], out[i, h, :]>:
+//
+//   dv[j, h, :]  = sum over the entries (i <- j) of alpha~ * g[i, h, :]
+//   ds[h, e]     = alpha * (M * keep * <g[i, h, :], v[j, h, :]> - delta[i, h])
+//   dq[i, h, :]  = scale * sum over i's entries of ds * k[j, h, :]
+//   dk[j, h, :]  = scale * sum over the entries (i <- j) of ds * q[i, h, :]
+//
+// The steps are the node-score kernels above in another mode (kMode): the stats
+// kernel reads s in place of the node scores; the weighted sum forms alpha~ from s
+// (kEdgeScores), or takes given weights (kEdgeWeights: dq and dk, weights ds); the
+// backward pass forms alpha from s, adds dv, and writes ds in place of adding the
+// node scores' gradients; GAT's weights dropped (kNodeMasked) multiply alpha by the
+// mask. kNodeScores is GAT's attention as it was: its instances read no mask. Per-edge
+// arrays are head-major, [H, E], so that a head's entries lie in the listing's order;
+// a pass over the transposed listing finds an entry's place in the row listing in
+// pos (the forward place of each transposed entry). Only per-head instances take
+// these modes; the whole-row path stays GAT's. sddmm_kernel is a group a segment and
+// head, as the weighted sum: it keeps q[i] of the run's row in registers and gathers
+// k[j] (the bytes that bound it, as z bounds the weighted sum), each entry's dot
+// product summed over the group's lanes by shuffles. Nothing of [E, H, C] is formed.
+// A fused row kernel with an online softmax (reading k and v once an entry) was not
+// built: it gathers the same bytes as the scores' kernel and the weighted sum
+// together, and could save only the stats kernel and the scores' [H, E] traffic,
+// about 1 % of the UniMP cell's epoch (its traced epoch; PERF.md),
+// while a hub row split across segments would need a second pass to merge.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -161,6 +196,34 @@ static_assert(kRowG >= kRowHeads && kRowG <= 32 && kRowFloats <= 512 && kRowHead
 
 __device__ __forceinline__ float leaky(float p, float slope) { return p > 0.f ? p : slope * p; }
 
+// Where an entry's weight comes from (kMode of the per-head weighted sum and
+// backward pass): GAT's node scores as they were, GAT's node scores with the
+// weights dropped, per-edge scores (alpha~ from s, m, l and the mask, if any), or
+// per-edge weights as given.
+constexpr int kNodeScores = 0, kNodeMasked = 1, kEdgeScores = 2, kEdgeWeights = 3;
+
+// The per-edge operands of the modes other than kNodeScores, all [H, E] by the
+// entry's place e in the row listing: es the scores or the weights, mask 1 where a
+// weight is kept (null: none dropped), keep the factor of a kept weight; pos the
+// place e of each entry of the listing walked (null: the row listing itself).
+struct EdgeOps {
+  const float* es;
+  const uint8_t* mask;
+  const int32_t* pos;
+  float keep;
+};
+
+// The index in an [H, E] array of listed entry `e`, head h.
+__device__ __forceinline__ int64_t edge_index(const EdgeOps& ops, int64_t e, int h, int64_t nnz) {
+  const int64_t f = ops.pos != nullptr ? static_cast<int64_t>(__ldcs(ops.pos + e)) : e;
+  return static_cast<int64_t>(h) * nnz + f;
+}
+
+// The factor of a kept or dropped weight at index x: keep or 0, 1 without a mask.
+__device__ __forceinline__ float kept(const EdgeOps& ops, int64_t x) {
+  return ops.mask == nullptr ? 1.f : (__ldg(ops.mask + x) != 0 ? ops.keep : 0.f);
+}
+
 // *addr = max(*addr, v) for floats, by the order of their bits: a value whose sign
 // bit is clear orders as a signed int, one whose sign bit is set in reverse as an
 // unsigned int (-0.0 and -inf included).
@@ -174,26 +237,31 @@ __device__ __forceinline__ void atomic_max_f32(float* addr, float v) {
 
 // kPhase 0: m[i, h] = max over i's entries of a[e, h] (m holds -inf on entry).
 // kPhase 1: l[i, h] += exp(a[e, h] - m[i, h]) (l holds 0 on entry).
-template <int kPhase>
+// a is leaky(s_dst[i] + s_src[j]), or with kEdge the per-edge score es[h, e].
+template <int kPhase, bool kEdge>
 __global__ void __launch_bounds__(kThreads)
 gat_stats_kernel(const int32_t* __restrict__ row, const int32_t* __restrict__ col,
                  const float* __restrict__ s_src, const float* __restrict__ s_dst,
-                 float* __restrict__ m, float* __restrict__ l, int64_t nnz, int heads,
-                 float slope) {
+                 const float* __restrict__ es, float* __restrict__ m, float* __restrict__ l,
+                 int64_t nnz, int heads, float slope) {
   const int lane = threadIdx.x & 31;
   const int64_t e = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
   if (e - lane >= nnz) return;  // uniform across the warp
   const bool valid = e < nnz;
   const int32_t r = valid ? __ldcs(row + e) : -1;
-  const int32_t c = valid ? __ldcs(col + e) : 0;
+  const int32_t c = (valid && !kEdge) ? __ldcs(col + e) : 0;
   const int32_t r_prev = __shfl_up_sync(kFull, r, 1);
   const bool first = valid && (lane == 0 || r_prev != r);
   for (int h = 0; h < heads; ++h) {
     const int64_t ri = static_cast<int64_t>(r) * heads + h;
     float v;
     if (valid) {
-      const float a = leaky(__ldg(s_dst + ri) + __ldg(s_src + static_cast<int64_t>(c) * heads + h),
-                            slope);
+      float a;
+      if constexpr (kEdge) {
+        a = __ldcs(es + static_cast<int64_t>(h) * nnz + e);
+      } else {
+        a = leaky(__ldg(s_dst + ri) + __ldg(s_src + static_cast<int64_t>(c) * heads + h), slope);
+      }
       if constexpr (kPhase == 0) {
         v = a;
       } else {
@@ -275,15 +343,16 @@ __device__ __forceinline__ int segment_length(int64_t e0, int64_t nnz) {
   return static_cast<int>(e0 < nnz ? (nnz - e0 < kSeg ? nnz - e0 : kSeg) : 0);
 }
 
-// out[i, h, :] += alpha[e, h] * z[j, h, :] over the entries; out holds 0 on entry.
-// A group of kG lanes sums one segment of kSeg entries for head blockIdx.y.
-template <int kG, bool kVec, int kQuads>
+// out[i, h, :] += w[e, h] * z[j, h, :] over the entries; out holds 0 on entry. w
+// is alpha, alpha~ or the given weight (kMode). A group of kG lanes sums one
+// segment of kSeg entries for head blockIdx.y.
+template <int kG, bool kVec, int kQuads, int kMode>
 __global__ void __launch_bounds__(kThreads)
 gat_aggregate_kernel(const int32_t* __restrict__ row, const int32_t* __restrict__ col,
                      const float* __restrict__ s_src, const float* __restrict__ s_dst,
                      const float* __restrict__ m, const float* __restrict__ l,
                      const float* __restrict__ z, float* __restrict__ out, int64_t nnz,
-                     int heads, int c_head, float slope, int64_t segments) {
+                     int heads, int c_head, float slope, int64_t segments, EdgeOps ops) {
   constexpr int kLane = 4 * kQuads;
   constexpr int kR = 32 / kG;  // groups of a warp
   const int lane = threadIdx.x & 31;
@@ -311,9 +380,17 @@ gat_aggregate_kernel(const int32_t* __restrict__ row, const int32_t* __restrict_
     r_next = __ldcs(row + e);
     c_next = __ldcs(col + e);
     const int64_t ri = static_cast<int64_t>(r_next) * heads + h;
-    const float a = leaky(__ldg(s_dst + ri) + __ldg(s_src + static_cast<int64_t>(c_next) * heads + h),
-                          slope);
-    w_next = expf(a - __ldg(m + ri)) / __ldg(l + ri);
+    if constexpr (kMode == kEdgeWeights) {
+      w_next = __ldg(ops.es + edge_index(ops, e, h, nnz));
+    } else if constexpr (kMode == kEdgeScores) {
+      const int64_t x = edge_index(ops, e, h, nnz);
+      w_next = expf(__ldg(ops.es + x) - __ldg(m + ri)) / __ldg(l + ri) * kept(ops, x);
+    } else {
+      const float a = leaky(__ldg(s_dst + ri) + __ldg(s_src + static_cast<int64_t>(c_next) * heads + h),
+                            slope);
+      w_next = expf(a - __ldg(m + ri)) / __ldg(l + ri);
+      if constexpr (kMode == kNodeMasked) w_next *= kept(ops, edge_index(ops, e, h, nnz));
+    }
   };
   if (gl < len) fetch(e0 + gl);
   for (int c0 = 0; c0 < most; c0 += kG) {
@@ -355,8 +432,8 @@ gat_aggregate_kernel(const int32_t* __restrict__ row, const int32_t* __restrict_
   if (cur >= 0) add_tile<kG, kVec, kQuads>(oh + static_cast<int64_t>(cur) * stride, gl, c_head, acc);
 }
 
-// delta[i, h] = <g[i, h, :], out[i, h, :]>; q[i, h] = (s_dst, m, l, delta). One warp
-// a row, the heads in turn.
+// delta[i, h] = <g[i, h, :], out[i, h, :]>; q[i, h] = (s_dst, m, l, delta), s_dst 0
+// where it is null (per-edge scores). One warp a row, the heads in turn.
 __global__ void __launch_bounds__(kThreads)
 gat_rowdot_kernel(const float* __restrict__ g, const float* __restrict__ out,
                   const float* __restrict__ s_dst, const float* __restrict__ m,
@@ -375,24 +452,31 @@ gat_rowdot_kernel(const float* __restrict__ g, const float* __restrict__ out,
     for (int o = 16; o > 0; o >>= 1) d += __shfl_xor_sync(kFull, d, o);
     if (lane == 0) {
       const int64_t ri = i * heads + h;
-      q[ri] = make_float4(__ldg(s_dst + ri), __ldg(m + ri), __ldg(l + ri), d);
+      q[ri] = make_float4(s_dst != nullptr ? __ldg(s_dst + ri) : 0.f, __ldg(m + ri),
+                          __ldg(l + ri), d);
     }
   }
 }
 
 // The backward pass over the transposed listing (t_row = source j, t_col =
-// destination i, sorted by j), head blockIdx.y: dz[j] += alpha * g[i],
-// ds_src[j] += dpre, ds_dst[i] += dpre. dz, ds_src and ds_dst hold 0 on entry.
-template <int kG, bool kVec, int kQuads>
+// destination i, sorted by j), head blockIdx.y: dz[j] += w * g[i] (w alpha, or
+// alpha~ where weights are dropped) and dpre = alpha' * (k * dalpha - delta[i, h])
+// (k the mask's factor, 1 without one; alpha' alpha times the LeakyReLU's slope at
+// pre for node scores, alpha for per-edge ones). Node scores: ds_src[j] += dpre,
+// ds_dst[i] += dpre; per-edge scores: ds_out[h, e] = ds_scale * dpre at the entry's
+// place e in the row listing. dz, ds_src and ds_dst hold 0 on entry.
+template <int kG, bool kVec, int kQuads, int kMode>
 __global__ void __launch_bounds__(kThreads)
 gat_backward_kernel(const int32_t* __restrict__ t_row, const int32_t* __restrict__ t_col,
                     const float* __restrict__ s_src, const float4* __restrict__ q,
                     const float* __restrict__ z, const float* __restrict__ g,
                     float* __restrict__ dz, float* __restrict__ ds_src,
                     float* __restrict__ ds_dst, int64_t nnz, int heads, int c_head, float slope,
-                    int64_t segments) {
+                    int64_t segments, EdgeOps ops, float* __restrict__ ds_out, float ds_scale) {
   constexpr int kLane = 4 * kQuads;
   constexpr int kR = 32 / kG;
+  constexpr bool kMasked = kMode != kNodeScores;  // the factor k is read
+  constexpr bool kEdge = kMode == kEdgeScores;
   const int lane = threadIdx.x & 31;
   const int gl = lane % kG;
   const int base = lane - gl;
@@ -414,30 +498,44 @@ gat_backward_kernel(const int32_t* __restrict__ t_row, const int32_t* __restrict
   float ds = 0.f;    // the run's ds_src
   int cur = -1;
 
-  // this lane's entry of the group's next kG: source j, destination i, alpha,
-  // alpha times the LeakyReLU's slope at pre, and delta[i, h]
+  // this lane's entry of the group's next kG: source j, destination i, dz's weight,
+  // dpre's factor alpha', delta[i, h], the mask's factor and (per-edge) ds's index
   int32_t j_next = 0, i_next = 0;
-  float w_next = 0.f, ws_next = 0.f, d_next = 0.f;
+  float w_next = 0.f, ws_next = 0.f, d_next = 0.f, k_next = 1.f;
+  int64_t x_next = 0;
   auto fetch = [&](int64_t e) {
     j_next = __ldcs(t_row + e);
     i_next = __ldcs(t_col + e);
     const float4 qi = __ldg(q + static_cast<int64_t>(i_next) * heads + h);
-    const float p = qi.x + __ldg(s_src + static_cast<int64_t>(j_next) * heads + h);
-    w_next = expf(leaky(p, slope) - qi.y) / qi.z;
-    ws_next = p > 0.f ? w_next : w_next * slope;
+    if constexpr (kEdge) {
+      x_next = edge_index(ops, e, h, nnz);
+      ws_next = expf(__ldg(ops.es + x_next) - qi.y) / qi.z;
+      k_next = kept(ops, x_next);
+      w_next = ws_next * k_next;
+    } else {
+      const float p = qi.x + __ldg(s_src + static_cast<int64_t>(j_next) * heads + h);
+      w_next = expf(leaky(p, slope) - qi.y) / qi.z;
+      ws_next = p > 0.f ? w_next : w_next * slope;
+      if constexpr (kMasked) {
+        k_next = kept(ops, edge_index(ops, e, h, nnz));
+        w_next *= k_next;
+      }
+    }
     d_next = qi.w;
   };
   if (gl < len) fetch(e0 + gl);
   for (int c0 = 0; c0 < most; c0 += kG) {
     const int n = min(kG, len - c0);
     const int32_t jr = j_next, ir = i_next;
-    const float w = w_next, ws = ws_next, dl = d_next;
+    const float w = w_next, ws = ws_next, dl = d_next, kf = k_next;
+    const int64_t xr = x_next;
     if (c0 + kG + gl < len) fetch(e0 + c0 + kG + gl);
     const int steps = min(kG, most - c0);  // uniform across the warp
     for (int j0 = 0; j0 < steps; j0 += kBatch) {
       float gi[kBatch][kLane];
-      float wj[kBatch], wsj[kBatch], dj[kBatch];
+      float wj[kBatch], wsj[kBatch], dj[kBatch], kj[kBatch];
       int32_t rj[kBatch], ij[kBatch];
+      int64_t xj[kBatch];
 #pragma unroll
       for (int b = 0; b < kBatch; ++b) {
         const int src = base + ((j0 + b) & (kG - 1));
@@ -446,6 +544,8 @@ gat_backward_kernel(const int32_t* __restrict__ t_row, const int32_t* __restrict
         wj[b] = __shfl_sync(kFull, w, src);
         wsj[b] = __shfl_sync(kFull, ws, src);
         dj[b] = __shfl_sync(kFull, dl, src);
+        if constexpr (kMasked) kj[b] = __shfl_sync(kFull, kf, src);
+        if constexpr (kEdge) xj[b] = __shfl_sync(kFull, xr, src);
         load_tile<kG, kVec, kQuads>(gh + static_cast<int64_t>(ij[b]) * stride, gl, c_head,
                                     j0 + b < n, gi[b]);
       }
@@ -455,7 +555,7 @@ gat_backward_kernel(const int32_t* __restrict__ t_row, const int32_t* __restrict
         if (valid && rj[b] != cur) {
           if (cur >= 0) {
             add_tile<kG, kVec, kQuads>(dzh + static_cast<int64_t>(cur) * stride, gl, c_head, acc);
-            if (gl == 0) atomicAdd(ds_src + static_cast<int64_t>(cur) * heads + h, ds);
+            if (!kEdge && gl == 0) atomicAdd(ds_src + static_cast<int64_t>(cur) * heads + h, ds);
           }
           cur = rj[b];
           load_tile<kG, kVec, kQuads>(zh + static_cast<int64_t>(cur) * stride, gl, c_head, true,
@@ -472,18 +572,96 @@ gat_backward_kernel(const int32_t* __restrict__ t_row, const int32_t* __restrict
 #pragma unroll
         for (int o = kG / 2; o > 0; o >>= 1) da += __shfl_xor_sync(kFull, da, o);
         if (valid) {
-          const float dpre = wsj[b] * (da - dj[b]);
+          float dpre;
+          if constexpr (kMasked) {
+            dpre = wsj[b] * (kj[b] * da - dj[b]);
+          } else {
+            dpre = wsj[b] * (da - dj[b]);
+          }
 #pragma unroll
           for (int k = 0; k < kLane; ++k) acc[k] = fmaf(wj[b], gi[b][k], acc[k]);
-          ds += dpre;
-          if (gl == 0) atomicAdd(ds_dst + static_cast<int64_t>(ij[b]) * heads + h, dpre);
+          if constexpr (kEdge) {
+            if (gl == 0) ds_out[xj[b]] = ds_scale * dpre;
+          } else {
+            ds += dpre;
+            if (gl == 0) atomicAdd(ds_dst + static_cast<int64_t>(ij[b]) * heads + h, dpre);
+          }
         }
       }
     }
   }
   if (cur >= 0) {
     add_tile<kG, kVec, kQuads>(dzh + static_cast<int64_t>(cur) * stride, gl, c_head, acc);
-    if (gl == 0) atomicAdd(ds_src + static_cast<int64_t>(cur) * heads + h, ds);
+    if (!kEdge && gl == 0) atomicAdd(ds_src + static_cast<int64_t>(cur) * heads + h, ds);
+  }
+}
+
+// s[h, e] = scale * <q[i, h, :], k[j, h, :]> over the row listing (i = row, j =
+// col), head blockIdx.y: a group of kG lanes a segment, q[i] of the run's row kept
+// in its lanes, k[j] gathered, each entry's product summed over the group's lanes.
+template <int kG, bool kVec, int kQuads>
+__global__ void __launch_bounds__(kThreads)
+sddmm_kernel(const int32_t* __restrict__ row, const int32_t* __restrict__ col,
+             const float* __restrict__ q, const float* __restrict__ k, float* __restrict__ s,
+             int64_t nnz, int heads, int c_head, float scale, int64_t segments) {
+  constexpr int kLane = 4 * kQuads;
+  constexpr int kR = 32 / kG;
+  const int lane = threadIdx.x & 31;
+  const int gl = lane % kG;
+  const int base = lane - gl;
+  const int h = blockIdx.y;
+  const int64_t seg0 = (static_cast<int64_t>(blockIdx.x) * kWarps + (threadIdx.x >> 5)) * kR;
+  if (seg0 >= segments) return;  // uniform across the warp
+  const int64_t e0 = (seg0 + lane / kG) * kSeg;
+  const int len = segment_length(e0, nnz);
+  const int most = __reduce_max_sync(kFull, len);
+  const int64_t stride = static_cast<int64_t>(heads) * c_head;
+  const float* qh = q + static_cast<int64_t>(h) * c_head;
+  const float* kh = k + static_cast<int64_t>(h) * c_head;
+  float* sh = s + static_cast<int64_t>(h) * nnz;
+
+  float qr[kLane];  // the run's q[i, h, :]
+#pragma unroll
+  for (int t = 0; t < kLane; ++t) qr[t] = 0.f;
+  int cur = -1;
+  int32_t r_next = 0, c_next = 0;  // this lane's entry of the group's next kG
+  auto fetch = [&](int64_t e) {
+    r_next = __ldcs(row + e);
+    c_next = __ldcs(col + e);
+  };
+  if (gl < len) fetch(e0 + gl);
+  for (int c0 = 0; c0 < most; c0 += kG) {
+    const int n = min(kG, len - c0);
+    const int32_t r = r_next, c = c_next;
+    if (c0 + kG + gl < len) fetch(e0 + c0 + kG + gl);
+    const int steps = min(kG, most - c0);  // uniform across the warp
+    for (int j0 = 0; j0 < steps; j0 += kBatch) {
+      float kj[kBatch][kLane];
+      int32_t rj[kBatch];
+#pragma unroll
+      for (int b = 0; b < kBatch; ++b) {
+        const int src = base + ((j0 + b) & (kG - 1));
+        const int32_t cj = __shfl_sync(kFull, c, src);
+        rj[b] = __shfl_sync(kFull, r, src);
+        load_tile<kG, kVec, kQuads>(kh + static_cast<int64_t>(cj) * stride, gl, c_head,
+                                    j0 + b < n, kj[b]);
+      }
+#pragma unroll
+      for (int b = 0; b < kBatch; ++b) {
+        const bool valid = j0 + b < n;  // uniform across the group
+        if (valid && rj[b] != cur) {
+          cur = rj[b];
+          load_tile<kG, kVec, kQuads>(qh + static_cast<int64_t>(cur) * stride, gl, c_head, true,
+                                      qr);
+        }
+        float d = 0.f;
+#pragma unroll
+        for (int t = 0; t < kLane; ++t) d = fmaf(kj[b][t], qr[t], d);
+#pragma unroll
+        for (int o = kG / 2; o > 0; o >>= 1) d += __shfl_xor_sync(kFull, d, o);
+        if (valid && gl == 0) __stcs(sh + e0 + c0 + j0 + b, scale * d);
+      }
+    }
   }
 }
 
@@ -786,45 +964,102 @@ inline bool segment_grid(int64_t nnz, int kg, int heads, dim3& grid, int64_t& se
   return true;
 }
 
-template <int kG, int kQuads>
+template <int kG, int kQuads, int kMode>
 int launch_aggregate(const int32_t* row, const int32_t* col, const float* s_src,
                      const float* s_dst, const float* m, const float* l, const float* z,
                      float* out, int64_t nnz, int heads, int c_head, float slope, bool vec4,
-                     cudaStream_t stream) {
+                     EdgeOps ops, cudaStream_t stream) {
   dim3 grid;
   int64_t segments;
   if (!segment_grid(nnz, kG, heads, grid, segments)) {
     return static_cast<int>(cudaErrorInvalidConfiguration);
   }
   if (vec4) {
-    gat_aggregate_kernel<kG, true, kQuads><<<grid, kThreads, 0, stream>>>(
-        row, col, s_src, s_dst, m, l, z, out, nnz, heads, c_head, slope, segments);
+    gat_aggregate_kernel<kG, true, kQuads, kMode><<<grid, kThreads, 0, stream>>>(
+        row, col, s_src, s_dst, m, l, z, out, nnz, heads, c_head, slope, segments, ops);
   } else {
-    gat_aggregate_kernel<kG, false, kQuads><<<grid, kThreads, 0, stream>>>(
-        row, col, s_src, s_dst, m, l, z, out, nnz, heads, c_head, slope, segments);
+    gat_aggregate_kernel<kG, false, kQuads, kMode><<<grid, kThreads, 0, stream>>>(
+        row, col, s_src, s_dst, m, l, z, out, nnz, heads, c_head, slope, segments, ops);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int kG, int kQuads, int kMode>
+int launch_backward(const int32_t* t_row, const int32_t* t_col, const float* s_src,
+                    const float4* q, const float* z, const float* g, float* dz, float* ds_src,
+                    float* ds_dst, int64_t nnz, int heads, int c_head, float slope, bool vec4,
+                    EdgeOps ops, float* ds_out, float ds_scale, cudaStream_t stream) {
+  dim3 grid;
+  int64_t segments;
+  if (!segment_grid(nnz, kG, heads, grid, segments)) {
+    return static_cast<int>(cudaErrorInvalidConfiguration);
+  }
+  if (vec4) {
+    gat_backward_kernel<kG, true, kQuads, kMode><<<grid, kThreads, 0, stream>>>(
+        t_row, t_col, s_src, q, z, g, dz, ds_src, ds_dst, nnz, heads, c_head, slope, segments,
+        ops, ds_out, ds_scale);
+  } else {
+    gat_backward_kernel<kG, false, kQuads, kMode><<<grid, kThreads, 0, stream>>>(
+        t_row, t_col, s_src, q, z, g, dz, ds_src, ds_dst, nnz, heads, c_head, slope, segments,
+        ops, ds_out, ds_scale);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int kG, int kQuads>
-int launch_backward(const int32_t* t_row, const int32_t* t_col, const float* s_src,
-                    const float4* q, const float* z, const float* g, float* dz, float* ds_src,
-                    float* ds_dst, int64_t nnz, int heads, int c_head, float slope, bool vec4,
-                    cudaStream_t stream) {
+int launch_sddmm(const int32_t* row, const int32_t* col, const float* q, const float* k,
+                 float* s, int64_t nnz, int heads, int c_head, float scale, bool vec4,
+                 cudaStream_t stream) {
   dim3 grid;
   int64_t segments;
   if (!segment_grid(nnz, kG, heads, grid, segments)) {
     return static_cast<int>(cudaErrorInvalidConfiguration);
   }
   if (vec4) {
-    gat_backward_kernel<kG, true, kQuads><<<grid, kThreads, 0, stream>>>(
-        t_row, t_col, s_src, q, z, g, dz, ds_src, ds_dst, nnz, heads, c_head, slope, segments);
+    sddmm_kernel<kG, true, kQuads><<<grid, kThreads, 0, stream>>>(
+        row, col, q, k, s, nnz, heads, c_head, scale, segments);
   } else {
-    gat_backward_kernel<kG, false, kQuads><<<grid, kThreads, 0, stream>>>(
-        t_row, t_col, s_src, q, z, g, dz, ds_src, ds_dst, nnz, heads, c_head, slope, segments);
+    sddmm_kernel<kG, false, kQuads><<<grid, kThreads, 0, stream>>>(
+        row, col, q, k, s, nnz, heads, c_head, scale, segments);
   }
   return static_cast<int>(cudaGetLastError());
 }
+
+// The per-head instance for a head of c_head features (at most 512): groups of
+// 8, 16 or 32 lanes, 4 kQuads floats a lane; Launch<kG, kQuads>::run(args...).
+template <template <int, int> class Launch, typename... Args>
+int dispatch_head(int c_head, Args... args) {
+  if (c_head <= 32) return Launch<8, 1>::run(args...);
+  if (c_head <= 64) return Launch<16, 1>::run(args...);
+  if (c_head <= 128) return Launch<32, 1>::run(args...);
+  if (c_head <= 256) return Launch<32, 2>::run(args...);
+  if (c_head <= 512) return Launch<32, 4>::run(args...);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+template <int kMode>
+struct HeadAggregate {
+  template <int kG, int kQuads>
+  struct At {
+    template <typename... Args>
+    static int run(Args... args) { return launch_aggregate<kG, kQuads, kMode>(args...); }
+  };
+};
+
+template <int kMode>
+struct HeadBackward {
+  template <int kG, int kQuads>
+  struct At {
+    template <typename... Args>
+    static int run(Args... args) { return launch_backward<kG, kQuads, kMode>(args...); }
+  };
+};
+
+template <int kG, int kQuads>
+struct HeadSddmm {
+  template <typename... Args>
+  static int run(Args... args) { return launch_sddmm<kG, kQuads>(args...); }
+};
 
 template <int kG, int kQuads, int kH>
 struct RowAggregate {
@@ -1187,44 +1422,83 @@ inline bool score_chunks(int64_t n_rows, int heads, int c_head, int aligned, int
 // head, scalar; 1 one group a head, float4 (c_head % 4 == 0); 2 one group every
 // head of a row (heads * c_head % 4 == 0, heads at most kRowHeads; a row longer
 // than kRowFloats floats takes layout 0). For 1 and 2 the caller guarantees
-// 16-byte aligned z, out (forward), z, g and dz (backward). Each entry launches
-// on `stream` and returns cudaGetLastError() (0 on success); none synchronizes.
+// 16-byte aligned z, out (forward), z, g and dz (backward). The per-edge operands
+// es, mask and ds_out are [heads, nnz] by the entry's place in the row listing,
+// mask uint8 (null: no weight dropped); pos int32 [nnz] holds the place in the row
+// listing of each entry of the listing walked (null: the row listing itself). Each
+// entry launches on `stream` and returns cudaGetLastError() (0 on success); none
+// synchronizes.
 
-// m must hold -inf and l 0: two launches, the maxima then the sums.
+// The softmax statistics: m must hold -inf and l 0; two launches, the maxima then
+// the sums. es null: the node scores' a = leaky(s_dst[i] + s_src[j]); else the
+// per-edge scores es [heads, nnz] (row, m and l alone are read).
 extern "C" int gat_stats_f32(const int32_t* row, const int32_t* col, const float* s_src,
-                             const float* s_dst, float* m, float* l, int64_t nnz, int heads,
-                             float slope, cudaStream_t stream) {
+                             const float* s_dst, const float* es, float* m, float* l,
+                             int64_t nnz, int heads, float slope, cudaStream_t stream) {
   if (nnz <= 0 || heads <= 0) return static_cast<int>(cudaErrorInvalidValue);
   const int64_t blocks = (nnz + kThreads - 1) / kThreads;
   if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidConfiguration);
-  gat_stats_kernel<0><<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(
-      row, col, s_src, s_dst, m, l, nnz, heads, slope);
+  const unsigned b = static_cast<unsigned>(blocks);
+  if (es == nullptr) {
+    gat_stats_kernel<0, false><<<b, kThreads, 0, stream>>>(row, col, s_src, s_dst, nullptr, m,
+                                                           l, nnz, heads, slope);
+  } else {
+    gat_stats_kernel<0, true><<<b, kThreads, 0, stream>>>(row, nullptr, nullptr, nullptr, es, m,
+                                                          l, nnz, heads, 0.f);
+  }
   const int err = static_cast<int>(cudaGetLastError());
   if (err != 0) return err;
-  gat_stats_kernel<1><<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(
-      row, col, s_src, s_dst, m, l, nnz, heads, slope);
+  if (es == nullptr) {
+    gat_stats_kernel<1, false><<<b, kThreads, 0, stream>>>(row, col, s_src, s_dst, nullptr, m,
+                                                           l, nnz, heads, slope);
+  } else {
+    gat_stats_kernel<1, true><<<b, kThreads, 0, stream>>>(row, nullptr, nullptr, nullptr, es, m,
+                                                          l, nnz, heads, 0.f);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
-// out must hold 0.
+// The weighted sum; out must hold 0. mode 0 (kNodeScores): GAT's node scores, in
+// any layout, reading no per-edge operand; 1 (kNodeMasked): the node scores with
+// the weights dropped by mask; 2 (kEdgeScores): alpha~ from the per-edge scores
+// es, m and l; 3 (kEdgeWeights): the weights es as given, at pos. Modes 1-3 take
+// the per-head layouts only (0 or 1).
 extern "C" int gat_aggregate_f32(const int32_t* row, const int32_t* col, const float* s_src,
                                  const float* s_dst, const float* m, const float* l,
-                                 const float* z, float* out, int64_t nnz, int heads,
-                                 int c_head, float slope, int layout, cudaStream_t stream) {
-  if (nnz <= 0 || heads <= 0 || c_head <= 0 || !layout_ok(layout, heads, c_head)) {
+                                 const float* es, const uint8_t* mask, const int32_t* pos,
+                                 float keep, const float* z, float* out, int64_t nnz,
+                                 int heads, int c_head, float slope, int mode, int layout,
+                                 cudaStream_t stream) {
+  if (nnz <= 0 || heads <= 0 || c_head <= 0 || !layout_ok(layout, heads, c_head) ||
+      (mode != kNodeScores && layout == kLayoutRow)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  if (layout == kLayoutRow && heads * c_head <= kRowFloats) {
+  if (mode == kNodeScores && layout == kLayoutRow && heads * c_head <= kRowFloats) {
     return dispatch_row<RowAggregate>(heads, heads * c_head / 4, row, col, s_src, s_dst, m, l, z,
                                       out, nnz, heads, c_head, slope, stream);
   }
+  const EdgeOps ops{es, mask, pos, keep};
   const bool v = layout == kLayoutVec4;
-  if (c_head <= 32) return launch_aggregate<8, 1>(row, col, s_src, s_dst, m, l, z, out, nnz, heads, c_head, slope, v, stream);
-  if (c_head <= 64) return launch_aggregate<16, 1>(row, col, s_src, s_dst, m, l, z, out, nnz, heads, c_head, slope, v, stream);
-  if (c_head <= 128) return launch_aggregate<32, 1>(row, col, s_src, s_dst, m, l, z, out, nnz, heads, c_head, slope, v, stream);
-  if (c_head <= 256) return launch_aggregate<32, 2>(row, col, s_src, s_dst, m, l, z, out, nnz, heads, c_head, slope, v, stream);
-  if (c_head <= 512) return launch_aggregate<32, 4>(row, col, s_src, s_dst, m, l, z, out, nnz, heads, c_head, slope, v, stream);
-  return static_cast<int>(cudaErrorInvalidValue);
+  switch (mode) {
+    case kNodeScores:
+      return dispatch_head<HeadAggregate<kNodeScores>::At>(
+          c_head, row, col, s_src, s_dst, m, l, z, out, nnz, heads, c_head, slope, v,
+          EdgeOps{nullptr, nullptr, nullptr, 1.f}, stream);
+    case kNodeMasked:
+      return dispatch_head<HeadAggregate<kNodeMasked>::At>(
+          c_head, row, col, s_src, s_dst, m, l, z, out, nnz, heads, c_head, slope, v, ops,
+          stream);
+    case kEdgeScores:
+      return dispatch_head<HeadAggregate<kEdgeScores>::At>(
+          c_head, row, col, s_src, s_dst, m, l, z, out, nnz, heads, c_head, slope, v, ops,
+          stream);
+    case kEdgeWeights:
+      return dispatch_head<HeadAggregate<kEdgeWeights>::At>(
+          c_head, row, col, s_src, s_dst, m, l, z, out, nnz, heads, c_head, slope, v, ops,
+          stream);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 extern "C" int gat_rowdot_f32(const float* g, const float* out, const float* s_dst,
@@ -1238,26 +1512,56 @@ extern "C" int gat_rowdot_f32(const float* g, const float* out, const float* s_d
   return static_cast<int>(cudaGetLastError());
 }
 
-// t_row, t_col: the transposed listing, sorted by t_row; dz, ds_src and ds_dst must
-// hold 0.
+// The backward pass over the transposed listing t_row, t_col (sorted by t_row); dz
+// must hold 0. mode 0 (kNodeScores): GAT's node scores, in any layout, ds_src and
+// ds_dst (holding 0) added; 1 (kNodeMasked): the same with the weights dropped by
+// mask; 2 (kEdgeScores): per-edge scores es, ds_out [heads, nnz] written whole,
+// times ds_scale. Modes 1 and 2 take the per-head layouts only (0 or 1).
 extern "C" int gat_backward_f32(const int32_t* t_row, const int32_t* t_col, const float* s_src,
-                                const float4* q, const float* z, const float* g, float* dz,
-                                float* ds_src, float* ds_dst, int64_t nnz, int heads,
-                                int c_head, float slope, int layout, cudaStream_t stream) {
-  if (nnz <= 0 || heads <= 0 || c_head <= 0 || !layout_ok(layout, heads, c_head)) {
+                                const float4* q, const float* es, const uint8_t* mask,
+                                const int32_t* pos, float keep, const float* z, const float* g,
+                                float* dz, float* ds_src, float* ds_dst, float* ds_out,
+                                float ds_scale, int64_t nnz, int heads, int c_head, float slope,
+                                int mode, int layout, cudaStream_t stream) {
+  if (nnz <= 0 || heads <= 0 || c_head <= 0 || !layout_ok(layout, heads, c_head) ||
+      (mode != kNodeScores && layout == kLayoutRow)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  if (layout == kLayoutRow && heads * c_head <= kRowFloats) {
+  if (mode == kNodeScores && layout == kLayoutRow && heads * c_head <= kRowFloats) {
     return dispatch_row<RowBackward>(heads, heads * c_head / 4, t_row, t_col, s_src, q, z, g, dz,
                                      ds_src, ds_dst, nnz, heads, c_head, slope, stream);
   }
+  const EdgeOps ops{es, mask, pos, keep};
   const bool v = layout == kLayoutVec4;
-  if (c_head <= 32) return launch_backward<8, 1>(t_row, t_col, s_src, q, z, g, dz, ds_src, ds_dst, nnz, heads, c_head, slope, v, stream);
-  if (c_head <= 64) return launch_backward<16, 1>(t_row, t_col, s_src, q, z, g, dz, ds_src, ds_dst, nnz, heads, c_head, slope, v, stream);
-  if (c_head <= 128) return launch_backward<32, 1>(t_row, t_col, s_src, q, z, g, dz, ds_src, ds_dst, nnz, heads, c_head, slope, v, stream);
-  if (c_head <= 256) return launch_backward<32, 2>(t_row, t_col, s_src, q, z, g, dz, ds_src, ds_dst, nnz, heads, c_head, slope, v, stream);
-  if (c_head <= 512) return launch_backward<32, 4>(t_row, t_col, s_src, q, z, g, dz, ds_src, ds_dst, nnz, heads, c_head, slope, v, stream);
-  return static_cast<int>(cudaErrorInvalidValue);
+  switch (mode) {
+    case kNodeScores:
+      return dispatch_head<HeadBackward<kNodeScores>::At>(
+          c_head, t_row, t_col, s_src, q, z, g, dz, ds_src, ds_dst, nnz, heads, c_head, slope,
+          v, EdgeOps{nullptr, nullptr, nullptr, 1.f}, static_cast<float*>(nullptr), 1.f, stream);
+    case kNodeMasked:
+      return dispatch_head<HeadBackward<kNodeMasked>::At>(
+          c_head, t_row, t_col, s_src, q, z, g, dz, ds_src, ds_dst, nnz, heads, c_head, slope,
+          v, ops, ds_out, ds_scale, stream);
+    case kEdgeScores:
+      return dispatch_head<HeadBackward<kEdgeScores>::At>(
+          c_head, t_row, t_col, s_src, q, z, g, dz, ds_src, ds_dst, nnz, heads, c_head, slope,
+          v, ops, ds_out, ds_scale, stream);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// s [heads, nnz] written whole: s[h, e] = scale * <q[row_e, h, :], k[col_e, h, :]>,
+// on the rows' listing, by the per-head layouts only (0 or 1).
+extern "C" int edge_sddmm_f32(const int32_t* row, const int32_t* col, const float* q,
+                              const float* k, float* s, int64_t nnz, int heads, int c_head,
+                              float scale, int layout, cudaStream_t stream) {
+  if (nnz <= 0 || heads <= 0 || c_head <= 0 || layout == kLayoutRow ||
+      !layout_ok(layout, heads, c_head)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return dispatch_head<HeadSddmm>(c_head, row, col, q, k, s, nnz, heads, c_head, scale,
+                                  layout == kLayoutVec4, stream);
 }
 
 // z [n_rows, heads, c_head], a_src and a_dst [heads, c_head], s_src and s_dst

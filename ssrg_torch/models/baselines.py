@@ -1,5 +1,8 @@
 """Message-passing baselines (counterpart of ``ssrg_tpu/models/baselines.py``):
-MLP, robust MLP (for the triplet loss), GCN, GraphSAGE, GAT, SGC and SIGN.
+MLP, robust MLP (for the triplet loss), GCN, GraphSAGE, GAT, SGC and SIGN,
+and UniMP, which the JAX package has not (``BaselineUniMP``: graph-transformer
+layers over :func:`ssrg_torch.ops.gat_attention.dot_attention` with the
+labels of some nodes as input).
 
 Unlike the precompute zoo, each layer of GCN, SAGE and GAT runs its own
 graph product:
@@ -20,7 +23,8 @@ graph product:
   the CPU. ``BaselineGAT(published=True)`` is PyG's ``GATConv`` as
   ``examples/ogbn_products_gat.py`` stacks it: a bias after the
   aggregation, a skip ``Linear`` added to each layer, self-loops in the
-  listing, attention dropout of its own; without it, the reference's form.
+  listing, attention dropout of its own (on a card too: the kernels read
+  the mask); without it, the reference's form.
 
 Submodule and parameter names are the flax names (``lin_{i}``, ``bn_{i}``,
 ``lin_out``, ``conv_{i}``, ``conv_out``, ``self_{i}``, ``nbr_{i}``,
@@ -44,9 +48,10 @@ import scipy.sparse as sp
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ssrg_torch.models.heads import BatchNorm, Dropout
-from ssrg_torch.ops.gat_attention import gat_attention, gat_scores
+from ssrg_torch.ops.gat_attention import dot_attention, gat_attention, gat_scores
 from ssrg_torch.ops.sddmm import edge_softmax
 from ssrg_torch.utils import DeviceLike, init_dense_, resolve_device, variance_scaling_
 
@@ -61,11 +66,16 @@ class EdgeList:
 
     An attention listing (:meth:`attention`) is the structure the attention
     kernels of :mod:`ssrg_torch.ops.gat_attention` consume: every entry once,
-    one self-loop a node in place of the diagonal, no padding (``mask`` None, ``nnz`` the
-    entry count), sorted by ``row`` then ``col``, and beside it the
-    transposed listing ``t_row`` (source), ``t_col`` (destination) sorted by
-    source, which the backward pass walks; for a symmetric structure the
-    two listings are the same tensors."""
+    no padding (``mask`` None, ``nnz`` the entry count), sorted by ``row``
+    then ``col``, and beside it the transposed listing ``t_row`` (source),
+    ``t_col`` (destination) sorted by source, which the backward pass walks;
+    for a symmetric structure the two listings are the same tensors. GAT's
+    listing has one self-loop a node in place of the diagonal; the
+    graph-transformer's (UniMP, ``self_loops=False``) keeps the stored
+    entries as they are, so a node without neighbours has a row without
+    entries. ``t_pos`` (:meth:`positions`) gives each transposed entry's
+    place in the row listing, where per-edge values (scores, dropped
+    weights) are kept."""
 
     row: torch.Tensor             # int32 [E_pad] destination
     col: torch.Tensor             # int32 [E_pad] source
@@ -74,6 +84,7 @@ class EdgeList:
     nnz: Optional[int] = None     # the real entries of an attention listing
     t_row: Optional[torch.Tensor] = None  # int32 [nnz] source, sorted
     t_col: Optional[torch.Tensor] = None  # int32 [nnz] destination
+    t_pos: Optional[torch.Tensor] = None  # int32 [nnz] each one's place in row, col
 
     @property
     def weights_mask(self) -> torch.Tensor:
@@ -103,18 +114,23 @@ class EdgeList:
                    adj.shape[0])
 
     @classmethod
-    def attention(cls, adj: sp.spmatrix) -> "EdgeList":
+    def attention(cls, adj: sp.spmatrix, self_loops: bool = True) -> "EdgeList":
         """The attention listing of ``adj``'s stored entries, on the host:
-        every diagonal entry dropped and one self-loop added a node (PyG's
-        ``add_self_loops``)."""
+        with ``self_loops`` every diagonal entry dropped and one self-loop
+        added a node (PyG's ``add_self_loops``, as ``GATConv`` does); without
+        them the stored entries as they are (``TransformerConv`` adds none),
+        rows without entries included."""
         coo = adj.tocoo()
         n, m = adj.shape
         if n != m:
-            raise ValueError(f"self-loops need a square adjacency, got {adj.shape}")
-        keep = coo.row != coo.col
-        loops = np.arange(n)
-        r = np.concatenate([coo.row[keep], loops])
-        c = np.concatenate([coo.col[keep], loops])
+            raise ValueError(f"an attention listing needs a square adjacency, got {adj.shape}")
+        if self_loops:
+            keep = coo.row != coo.col
+            loops = np.arange(n)
+            r = np.concatenate([coo.row[keep], loops])
+            c = np.concatenate([coo.col[keep], loops])
+        else:
+            r, c = coo.row, coo.col
         csr = sp.csr_matrix((np.ones(r.shape[0], np.float32), (r, c)), shape=(n, m))
         csr.sum_duplicates()
         row = torch.from_numpy(np.repeat(np.arange(n, dtype=np.int32), np.diff(csr.indptr)))
@@ -128,6 +144,20 @@ class EdgeList:
             t_col = torch.from_numpy(t.indices.astype(np.int32))
         return cls(row, col, None, n, int(csr.nnz), t_row, t_col)
 
+    def positions(self) -> torch.Tensor:
+        """``t_pos``, computed on the listing's device at the first call:
+        the place ``e`` in the row listing of each transposed entry, the
+        entry with ``row[e] = t_col[p]`` and ``col[e] = t_row[p]`` (found by
+        a binary search of the sorted keys ``row * N + col``)."""
+        if self.t_pos is None:
+            if self.t_row is None:
+                raise TypeError("positions need an attention listing (EdgeList.attention)")
+            n = self.num_nodes
+            keys = self.row[:self.nnz].long() * n + self.col[:self.nnz].long()
+            want = self.t_col.long() * n + self.t_row.long()
+            self.t_pos = torch.searchsorted(keys, want).to(torch.int32)
+        return self.t_pos
+
     def to(self, device: DeviceLike) -> "EdgeList":
         dev = resolve_device(device)
         row, col = self.row.to(dev), self.col.to(dev)
@@ -137,7 +167,8 @@ class EdgeList:
         elif t_row is not None:
             t_row, t_col = t_row.to(dev), t_col.to(dev)
         return replace(self, row=row, col=col, t_row=t_row, t_col=t_col,
-                       mask=None if self.mask is None else self.mask.to(dev))
+                       mask=None if self.mask is None else self.mask.to(dev),
+                       t_pos=None if self.t_pos is None else self.t_pos.to(dev))
 
 
 class BaselineMLP(nn.Module):
@@ -272,11 +303,12 @@ class BaselineGAT(nn.Module):
 
     Over an attention listing a layer runs
     :func:`ssrg_torch.ops.gat_attention.gat_attention`, the kernels on a
-    card, which have no dropout of the weights: a card's tensors in
-    training with ``attn_dropout`` above 0 raise ``ValueError``, and only
-    the CPU takes the plain path there. The reference's padded list always
-    takes the plain path. Both take their scores from
-    :func:`ssrg_torch.ops.gat_attention.gat_scores`."""
+    card and their plain versions on the CPU; in training at an
+    ``attn_dropout`` above 0 the mask of the weights, ``[H, E]``, is drawn
+    from the bound generator as :class:`~ssrg_torch.models.heads.Dropout`
+    draws one (none at a rate of 0) and handed to the kernels. The
+    reference's padded list always takes the plain path. Both take their
+    scores from :func:`ssrg_torch.ops.gat_attention.gat_scores`."""
 
     def __init__(self, feat_dim: int, hidden_dim: int, output_dim: int,
                  num_layers: int = 2, heads: int = 8, dropout: float = 0.5,
@@ -315,22 +347,9 @@ class BaselineGAT(nn.Module):
                 nn.init.zeros_(getattr(self, f"bias_{i}"))
                 init_dense_(getattr(self, f"skip_{i}"), generator=generator)
 
-    def _fused(self, x, edges: EdgeList) -> bool:
-        """Whether the layers run the fused attention: over an attention
-        listing with no dropout of the weights (evaluation, or a rate of 0),
-        and on a card always."""
-        if edges.t_row is None:
-            return False
-        if not (self.training and self.attn_dropout.rate > 0):
-            return True
-        if x.device.type == "cuda":
-            raise ValueError(f"BaselineGAT: the attention kernels drop no weights; attention "
-                             f"dropout {self.attn_dropout.rate} trains only on the CPU")
-        return False
-
     def forward(self, x, edges: EdgeList):
         h, n = self.heads, edges.num_nodes
-        fused = self._fused(x, edges)
+        fused = edges.t_row is not None  # an attention listing: the fused attention
         row, col = edges.row.long(), edges.col.long()
         for i, d in enumerate(self.dims):
             last = i == self.num_layers - 1
@@ -339,7 +358,9 @@ class BaselineGAT(nn.Module):
             score_src, score_dst = gat_scores(z, getattr(self, f"a_src_{i}"),
                                               getattr(self, f"a_dst_{i}"))   # [N, H]
             if fused:
-                out = gat_attention(z, score_src, score_dst, edges, self.negative_slope)
+                out = gat_attention(z, score_src, score_dst, edges, self.negative_slope,
+                                    self.attn_dropout.keep_mask((h, edges.nnz), x.device),
+                                    self.attn_dropout.rate)
             else:
                 e = F.leaky_relu(score_dst.index_select(0, row) + score_src.index_select(0, col),
                                  self.negative_slope)
@@ -351,6 +372,99 @@ class BaselineGAT(nn.Module):
                 x = x + getattr(self, f"bias_{i}") + getattr(self, f"skip_{i}")(x_in)
             if not last:
                 x = self.dropout(F.elu(x))
+        return x
+
+
+class BaselineUniMP(nn.Module):
+    """UniMP (Shi et al., IJCAI 2021): graph-transformer layers with the
+    labels of some nodes fed as input, PyG's ``TransformerConv(beta=True)``
+    as ``examples/unimp_arxiv.py`` stacks it with ``MaskLabel``. For layer
+    ``i`` with ``heads`` heads of ``d`` features (``hidden_dim``, the
+    classes at the last layer), over an attention listing without
+    self-loops (:meth:`EdgeList.attention`)::
+
+        q, k, v  = query_i(x), key_i(x), value_i(x)           [N, H, d]
+        m        = dot_attention(q, k, v): softmax over i's entries of
+                   <q_i, k_j> / sqrt(d), weights dropped at attn_dropout,
+                   the weighted sum of v_j; heads concatenated, averaged
+                   at the last layer
+        r        = skip_i(x)
+        beta     = sigmoid(beta_i([m, r, m - r]))             (no bias)
+        h        = beta r + (1 - beta) m
+        x        = relu(norm_i(h)) between layers; h the logits last
+
+    with ``x_0 = x + label_emb(y)`` on the nodes ``fed`` (``MaskLabel``'s
+    ``add``). The attention is
+    :func:`ssrg_torch.ops.gat_attention.dot_attention`: the kernels on a
+    card, their plain versions on the CPU, never an ``[E, H, d]`` tensor.
+    The gate's product is taken as ``m (w_m + w_d) + r (w_r - w_d)``, the
+    same sum without the ``[N, 3 width]`` concatenation. Each layer's mask
+    of the weights, ``[H, E]``, is drawn from the bound generator before
+    the layer (none at a rate of 0), and in training each layer runs under
+    ``torch.utils.checkpoint``: only its input and its mask stay for the
+    backward pass, which runs the layer again (a hidden layer would
+    otherwise keep about 40 GB at ogbn-products' size). No feature dropout
+    between layers, as the published stack has none. Parameter names:
+    ``label_emb``, ``query_{i}``, ``key_{i}``, ``value_{i}``, ``skip_{i}``,
+    ``beta_{i}``, ``norm_{i}``."""
+
+    def __init__(self, feat_dim: int, hidden_dim: int, output_dim: int,
+                 num_layers: int = 3, heads: int = 4, attn_dropout: float = 0.0):
+        super().__init__()
+        self.num_layers, self.heads = num_layers, heads
+        self.dims = [hidden_dim] * (num_layers - 1) + [output_dim]
+        self.label_emb = nn.Embedding(output_dim, feat_dim)
+        in_dim = feat_dim
+        for i, d in enumerate(self.dims):
+            width = d if i == num_layers - 1 else heads * d
+            for name in ("query", "key", "value"):
+                self.add_module(f"{name}_{i}", nn.Linear(in_dim, heads * d))
+            self.add_module(f"skip_{i}", nn.Linear(in_dim, width))
+            self.add_module(f"beta_{i}", nn.Linear(3 * width, 1, bias=False))
+            if i < num_layers - 1:
+                self.add_module(f"norm_{i}", nn.LayerNorm(width))
+            in_dim = heads * d
+        self.attn_dropout = Dropout(attn_dropout)
+        self.reset_parameters()
+
+    def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
+        with torch.no_grad():
+            self.label_emb.weight.normal_(generator=generator)
+        for i in range(self.num_layers):
+            for name in ("query", "key", "value", "skip", "beta"):
+                init_dense_(getattr(self, f"{name}_{i}"), generator=generator)
+            if i < self.num_layers - 1:
+                getattr(self, f"norm_{i}").reset_parameters()
+
+    def _layer(self, i: int, x: torch.Tensor, edges: EdgeList, mask) -> torch.Tensor:
+        n, h, d = x.shape[0], self.heads, self.dims[i]
+        last = i == self.num_layers - 1
+        q, k, v = (getattr(self, f"{name}_{i}")(x).view(n, h, d)
+                   for name in ("query", "key", "value"))
+        out = dot_attention(q, k, v, edges, mask, self.attn_dropout.rate)
+        del q, k, v
+        m = out.mean(dim=1) if last else out.reshape(n, h * d)
+        r = getattr(self, f"skip_{i}")(x)
+        w_m, w_r, w_d = getattr(self, f"beta_{i}").weight.view(3, -1)
+        beta = torch.sigmoid(m @ (w_m + w_d) + r @ (w_r - w_d))[:, None]
+        x = beta * r + (1.0 - beta) * m
+        return x if last else torch.relu(getattr(self, f"norm_{i}")(x))
+
+    def forward(self, x, edges: EdgeList, labels: torch.Tensor, fed: torch.Tensor):
+        """The logits ``[N, C]``; ``labels`` every node's, ``fed`` the nodes
+        whose labels enter the input."""
+        if edges.t_row is None:
+            raise TypeError("BaselineUniMP runs over an attention listing "
+                            "(EdgeList.attention(adj, self_loops=False))")
+        x = x.index_add(0, fed, self.label_emb(labels[fed]))
+        saving = self.training and torch.is_grad_enabled()
+        for i in range(self.num_layers):
+            mask = self.attn_dropout.keep_mask((self.heads, edges.nnz), x.device)
+            if saving:
+                x = checkpoint(self._layer, i, x, edges, mask, use_reentrant=False,
+                               preserve_rng_state=False)
+            else:
+                x = self._layer(i, x, edges, mask)
         return x
 
 

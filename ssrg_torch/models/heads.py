@@ -75,18 +75,29 @@ class Dropout(nn.Module):
         self.generator: Optional[torch.Generator] = None
 
     def forward(self, x):
-        if not self.training or self.rate == 0.0:
+        keep = self.keep_mask(x.shape, x.device)
+        if keep is None:
             return x
         if self.rate >= 1.0:
             return torch.zeros_like(x)
+        return torch.where(keep, x / (1.0 - self.rate),
+                           torch.zeros((), dtype=x.dtype, device=x.device))
+
+    def keep_mask(self, shape, device) -> Optional[torch.Tensor]:
+        """The mask :meth:`forward` draws for an input of ``shape`` on
+        ``device`` (bool, True where a value is kept), for a consumer that
+        applies it itself (the attention kernels); None where nothing is
+        dropped."""
+        if not self.training or self.rate == 0.0:
+            return None
+        if self.rate >= 1.0:
+            return torch.zeros(shape, dtype=torch.bool, device=device)
         if self.generator is None:
             raise RuntimeError(
                 "Dropout in training mode needs a torch.Generator: call "
                 "ssrg_torch.models.heads.bind_generator(module, generator)"
             )
-        keep_prob = 1.0 - self.rate
-        keep = torch.rand(x.shape, generator=self.generator, device=x.device) < keep_prob
-        return torch.where(keep, x / keep_prob, torch.zeros((), dtype=x.dtype, device=x.device))
+        return torch.rand(shape, generator=self.generator, device=device) < 1.0 - self.rate
 
 
 def bind_generator(module: nn.Module, generator: Optional[torch.Generator]) -> None:

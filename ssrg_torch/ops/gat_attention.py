@@ -1,5 +1,6 @@
-"""GAT edge attention without per-edge messages, and the attention scores:
-the hand-written CUDA kernels, their plain PyTorch versions, the autograd
+"""Edge attention without per-edge messages: GAT's (node scores), its
+scores, and the graph-transformer's (per-edge scores, UniMP's): the
+hand-written CUDA kernels, their plain PyTorch versions, the autograd
 functions over both and their launch counts.
 
 ``gat_attention(z, s_src, s_dst, edges, negative_slope)`` computes, for
@@ -50,6 +51,31 @@ added, registers capped so that an SM holds 4 blocks) were chosen by timing
 ``tools/kernels.py``'s variants on the GAT cell's listing (``PERF.md``). Its
 launches count by name in ``gat_attention.kernel_launches[ROW_PATH]``.
 
+With a ``mask`` (bool ``[H, E]`` by the row listing's entries, drawn at
+``rate``) the weighted sum and the backward pass drop the weights it does
+not keep and scale the others by ``1 / (1 - rate)``: on a card the
+per-head instances that read the mask (``gat_aggregate_f32`` and
+``gat_backward_f32`` in mode ``NODE_MASKED``; the backward pass finds an
+entry's mask by its place, :meth:`EdgeList.positions`). Without one, GAT's
+instances run as they were; ``attn.masked`` counts the mask's entries a
+pass applies.
+
+``dot_attention(q, k, v, edges, mask, rate)`` is the graph-transformer
+attention (PyG's ``TransformerConv``): per-edge scores ``s = <q[i], k[j]>
+/ sqrt(C)`` (:func:`edge_sddmm`, ``sddmm_kernel``; the plain version is
+:func:`ssrg_torch.ops.sddmm.sddmm` a head at a time), their softmax
+statistics (:func:`edge_stats`, the stats kernel on ``s``), the weighted
+sum of v with the mask applied after the normalization
+(:func:`edge_aggregate`); backward ``delta`` (:func:`rowdot`), one pass
+over the transposed listing for dv and ``ds = alpha (mask dalpha / (1 -
+rate) - delta)`` (:func:`edge_backward`), and the weighted sums of ``ds``
+for dq over the rows and dk over the transposed listing
+(:func:`weighted_sum`). Per-edge arrays are ``[H, E]``; nothing of ``[E,
+H, C]`` is formed. Its spans are ``attn`` and ``attn.bwd``, holding
+``attn.qk`` and ``attn.qk.bwd`` (the scores and their gradient, which
+count ``attn.qk_launches``). Rows without entries (a listing without
+self-loops) give 0.
+
 ``gat_scores(z, a_src, a_dst)`` computes the scores the attention takes,
 ``s_src[n, h] = <z[n, h, :], a_src[h, :]>`` and ``s_dst`` likewise, with
 gradients to ``z``, ``a_src`` and ``a_dst``. For CUDA tensors the forward
@@ -67,6 +93,7 @@ thread, ``attn.scores.bwd``, both outside ``attn`` and ``attn.bwd``, count
 from __future__ import annotations
 
 import ctypes
+import math
 from typing import Tuple
 
 import torch
@@ -75,6 +102,7 @@ from torch.autograd.function import once_differentiable
 
 from ssrg_torch.logger import count, span
 from ssrg_torch.ops import _nvcc
+from ssrg_torch.ops.sddmm import sddmm
 
 NAME = "gat_attention"
 # the widest head the kernels take (a group's tile: 32 lanes of 16 floats)
@@ -87,6 +115,10 @@ ROW_MAX_HEADS = 8
 # layout argument), and the whole-row path's key in kernel_launches
 PER_HEAD_SCALAR, PER_HEAD_FLOAT4, WHOLE_ROW = 0, 1, 2
 ROW_PATH = "whole_row"
+# the weights' modes of the weighted sum and the backward pass (csrc: kMode): GAT's
+# node scores, GAT's node scores with the weights dropped, per-edge scores, per-edge
+# weights as given
+NODE_SCORES, NODE_MASKED, EDGE_SCORES, EDGE_WEIGHTS = 0, 1, 2, 3
 # entries the plain versions gather at once
 CHUNK = 1 << 18
 # kernel launches of a forward and of a backward pass on a card
@@ -103,12 +135,15 @@ SCORE_MAX_BLOCKS_PER_SM = 16
 
 def _signatures() -> dict:
     p, i64, i32, f32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, ctypes.c_float
-    return {"gat_stats_f32": [p, p, p, p, p, p, i64, i32, f32, p],
-            "gat_aggregate_f32": [p, p, p, p, p, p, p, p, i64, i32, i32, f32, i32, p],
+    return {"gat_stats_f32": [p, p, p, p, p, p, p, i64, i32, f32, p],
+            "gat_aggregate_f32": [p, p, p, p, p, p, p, p, p, f32, p, p, i64, i32, i32, f32,
+                                  i32, i32, p],
             "gat_rowdot_f32": [p, p, p, p, p, p, i64, i32, i32, p],
-            "gat_backward_f32": [p, p, p, p, p, p, p, p, p, i64, i32, i32, f32, i32, p],
+            "gat_backward_f32": [p, p, p, p, p, p, p, f32, p, p, p, p, p, p, f32, i64, i32, i32,
+                                 f32, i32, i32, p],
             "gat_scores_f32": [p, p, p, p, p, i64, i32, i32, i32, p],
-            "gat_score_grad_f32": [p, p, p, p, p, p, p, i32, p, p, i64, i32, i32, i32, p]}
+            "gat_score_grad_f32": [p, p, p, p, p, p, p, i32, p, p, i64, i32, i32, i32, p],
+            "edge_sddmm_f32": [p, p, p, p, p, i64, i32, i32, f32, i32, p]}
 
 
 def _declare(lib: ctypes.CDLL, entries=None) -> None:
@@ -131,7 +166,8 @@ KERNELS = {"gat_stats_f32": {"gat_stats_kernel": 2},
            "gat_rowdot_f32": {"gat_rowdot_kernel": 1},
            "gat_backward_f32": {"gat_backward_kernel": 1},
            "gat_scores_f32": {"gat_scores_kernel": 1},
-           "gat_score_grad_f32": {"gat_score_grad_kernel": 1, "gat_score_sum_kernel": 1}}
+           "gat_score_grad_f32": {"gat_score_grad_kernel": 1, "gat_score_sum_kernel": 1},
+           "edge_sddmm_f32": {"sddmm_kernel": 1}}
 
 
 SCORE_ENTRIES = ("gat_scores_f32", "gat_score_grad_f32")
@@ -236,8 +272,8 @@ def softmax_stats(row, col, s_src, s_dst, nnz: int, slope: float
     if nnz:
         with torch.cuda.device(s_src.device):
             _launch("gat_stats_f32", row.data_ptr(), col.data_ptr(), s_src.data_ptr(),
-                    s_dst.data_ptr(), m.data_ptr(), l.data_ptr(), nnz, s_src.shape[1], slope,
-                    _nvcc.stream_of(s_src))
+                    s_dst.data_ptr(), None, m.data_ptr(), l.data_ptr(), nnz, s_src.shape[1],
+                    slope, _nvcc.stream_of(s_src))
     return m, l
 
 
@@ -246,36 +282,82 @@ def _step(z: torch.Tensor) -> int:
     return max(1, CHUNK * 128 // max(1, z.shape[1] * z.shape[2]))
 
 
-def aggregate_plain(row, col, s_src, s_dst, m, l, z, nnz: int, slope: float) -> torch.Tensor:
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _kept(mask, x: torch.Tensor, keep: float):
+    """The factor of the entries at places ``x`` (``[n, H]``): ``keep`` where
+    the mask ``[H, E]`` keeps the weight, 0 where it drops it; 1 without a
+    mask."""
+    if mask is None:
+        return 1.0
+    return mask[:, x].T.to(torch.float32) * keep
+
+
+def _places(pos, s: int, e: int, device) -> torch.Tensor:
+    """The places in the row listing of the listed entries ``[s, e)``."""
+    if pos is None:
+        return torch.arange(s, e, device=device)
+    return pos[s:e].long()
+
+
+def edge_layout(c_head: int, aligned: bool) -> int:
+    """The layout of the per-edge modes, which take only the per-head
+    lanes: float4 where a head is whole float4s and the operands are
+    16-byte aligned."""
+    return PER_HEAD_FLOAT4 if aligned and c_head % 4 == 0 else PER_HEAD_SCALAR
+
+
+def _node_mode(mask, z: torch.Tensor, *tensors: torch.Tensor) -> Tuple[int, int]:
+    """The mode and layout of GAT's weighted sum or backward pass: without a
+    mask ``NODE_SCORES`` in :func:`_layout`'s layout, with one ``NODE_MASKED``
+    on the per-head lanes."""
+    if mask is None:
+        return NODE_SCORES, _layout(z, *tensors)
+    return NODE_MASKED, edge_layout(z.shape[2], bool(_aligned(z, *tensors)))
+
+
+def aggregate_plain(row, col, s_src, s_dst, m, l, z, nnz: int, slope: float, mask=None,
+                    keep: float = 1.0) -> torch.Tensor:
     """``out[i, h, :] = sum of alpha[e, h] * z[col_e, h, :]`` over the first
-    ``nnz`` entries: ``[N, H, C]``."""
+    ``nnz`` entries: ``[N, H, C]``; with a ``mask`` (``[H, nnz]``, True where
+    a weight is kept) alpha times ``keep`` or 0."""
     out = torch.zeros_like(z)
     step = _step(z)
     for s in range(0, nnz, step):
         r, c = row[s:min(s + step, nnz)].long(), col[s:min(s + step, nnz)].long()
         w = torch.exp(_leaky(s_dst[r] + s_src[c], slope) - m[r]) / l[r]
+        if mask is not None:
+            w = w * _kept(mask, _places(None, s, s + r.numel(), r.device), keep)
         out.index_add_(0, r, z[c] * w[..., None])
     return out
 
 
-def aggregate(row, col, s_src, s_dst, m, l, z, nnz: int, slope: float) -> torch.Tensor:
-    """:func:`aggregate_plain` on its kernel for CUDA tensors."""
+def aggregate(row, col, s_src, s_dst, m, l, z, nnz: int, slope: float, mask=None,
+              keep: float = 1.0) -> torch.Tensor:
+    """:func:`aggregate_plain` on its kernel for CUDA tensors (with a mask,
+    its per-head instances that read it)."""
     if z.device.type != "cuda":
-        return aggregate_plain(row, col, s_src, s_dst, m, l, z, nnz, slope)
+        return aggregate_plain(row, col, s_src, s_dst, m, l, z, nnz, slope, mask, keep)
     out = torch.zeros_like(z)
     n, h, c = z.shape
     if nnz and c:
+        mode, lay = _node_mode(mask, z, out)
         with torch.cuda.device(z.device):
             _launch("gat_aggregate_f32", row.data_ptr(), col.data_ptr(), s_src.data_ptr(),
-                    s_dst.data_ptr(), m.data_ptr(), l.data_ptr(), z.data_ptr(), out.data_ptr(),
-                    nnz, h, c, slope, _layout(z, out), _nvcc.stream_of(z))
+                    s_dst.data_ptr(), m.data_ptr(), l.data_ptr(), None, _ptr(mask), None, keep,
+                    z.data_ptr(), out.data_ptr(), nnz, h, c, slope, mode, lay,
+                    _nvcc.stream_of(z))
     return out
 
 
 def rowdot_plain(g, out, s_dst, m, l) -> torch.Tensor:
-    """The row-side values of the backward pass, ``[N, H, 4]``: ``s_dst``,
-    ``m``, ``l`` and ``delta = <g[i, h, :], out[i, h, :]>``."""
-    return torch.stack([s_dst, m, l, (g * out).sum(-1)], dim=-1)
+    """The row-side values of the backward pass, ``[N, H, 4]``: ``s_dst`` (0
+    where it is None: per-edge scores), ``m``, ``l`` and ``delta = <g[i, h,
+    :], out[i, h, :]>``."""
+    return torch.stack([torch.zeros_like(m) if s_dst is None else s_dst, m, l,
+                        (g * out).sum(-1)], dim=-1)
 
 
 def rowdot(g, out, s_dst, m, l) -> torch.Tensor:
@@ -286,16 +368,20 @@ def rowdot(g, out, s_dst, m, l) -> torch.Tensor:
     q = torch.empty((n, h, 4), dtype=torch.float32, device=g.device)
     if n:
         with torch.cuda.device(g.device):
-            _launch("gat_rowdot_f32", g.data_ptr(), out.data_ptr(), s_dst.data_ptr(),
+            _launch("gat_rowdot_f32", g.data_ptr(), out.data_ptr(), _ptr(s_dst),
                     m.data_ptr(), l.data_ptr(), q.data_ptr(), n, h, c, _nvcc.stream_of(g))
     return q
 
 
-def backward_plain(t_row, t_col, q, s_src, z, g, nnz: int, slope: float):
+def backward_plain(t_row, t_col, q, s_src, z, g, nnz: int, slope: float, mask=None, pos=None,
+                   keep: float = 1.0):
     """One pass over the transposed listing (source ``t_row``, destination
     ``t_col``): ``dz[j] = sum of alpha * g[i]``, ``ds_src[j]`` and
     ``ds_dst[i]`` the sums of ``dpre = alpha * (<g[i], z[j]> - delta[i]) *
-    leaky_relu'(pre)`` over the entries, each head on its own."""
+    leaky_relu'(pre)`` over the entries, each head on its own. With a
+    ``mask`` (by the row listing's places; ``pos`` the place of each
+    transposed entry) alpha in dz and ``<g[i], z[j]>`` in dpre take the
+    mask's factor."""
     dz = torch.zeros_like(z)
     ds_src = torch.zeros_like(s_src)
     ds_dst = torch.zeros_like(s_src)
@@ -305,53 +391,65 @@ def backward_plain(t_row, t_col, q, s_src, z, g, nnz: int, slope: float):
         sd, mi, li, delta = q[i].unbind(-1)
         pre = sd + s_src[j]
         w = torch.exp(_leaky(pre, slope) - mi) / li
+        kk = 1.0 if mask is None else _kept(mask, _places(pos, s, s + j.numel(), j.device), keep)
         gi = g[i]
-        dz.index_add_(0, j, gi * w[..., None])
-        dpre = w * ((gi * z[j]).sum(-1) - delta) * torch.where(pre > 0, 1.0, slope)
+        dz.index_add_(0, j, gi * (w * kk)[..., None])
+        dpre = w * (kk * (gi * z[j]).sum(-1) - delta) * torch.where(pre > 0, 1.0, slope)
         ds_src.index_add_(0, j, dpre)
         ds_dst.index_add_(0, i, dpre)
     return dz, ds_src, ds_dst
 
 
-def backward(t_row, t_col, q, s_src, z, g, nnz: int, slope: float):
+def backward(t_row, t_col, q, s_src, z, g, nnz: int, slope: float, mask=None, pos=None,
+             keep: float = 1.0):
     """:func:`backward_plain` on its kernel for CUDA tensors:
     ``(dz, ds_src, ds_dst)``."""
     if z.device.type != "cuda":
-        return backward_plain(t_row, t_col, q, s_src, z, g, nnz, slope)
+        return backward_plain(t_row, t_col, q, s_src, z, g, nnz, slope, mask, pos, keep)
     n, h, c = z.shape
     dz = torch.zeros_like(z)
     ds_src = torch.zeros_like(s_src)
     ds_dst = torch.zeros_like(s_src)
     if nnz and c:
+        mode, lay = _node_mode(mask, z, g, dz)
         with torch.cuda.device(z.device):
             _launch("gat_backward_f32", t_row.data_ptr(), t_col.data_ptr(), s_src.data_ptr(),
-                    q.data_ptr(), z.data_ptr(), g.data_ptr(), dz.data_ptr(), ds_src.data_ptr(),
-                    ds_dst.data_ptr(), nnz, h, c, slope, _layout(z, g, dz),
-                    _nvcc.stream_of(z))
+                    q.data_ptr(), None, _ptr(mask), _ptr(pos), keep, z.data_ptr(),
+                    g.data_ptr(), dz.data_ptr(), ds_src.data_ptr(), ds_dst.data_ptr(), None,
+                    1.0, nnz, h, c, slope, mode, lay, _nvcc.stream_of(z))
     return dz, ds_src, ds_dst
+
+
+def _masked(mask, keep: float) -> dict:
+    """The keyword arguments that carry a mask to a step (none without one)."""
+    return {} if mask is None else {"mask": mask, "keep": keep}
 
 
 class _GATAttention(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, z, s_src, s_dst, edges, slope):
-        out, m, l = _forward(z, s_src, s_dst, edges, slope)
-        ctx.edges, ctx.slope = edges, slope
-        ctx.save_for_backward(z, s_src, s_dst, m, l, out)
+    def forward(ctx, z, s_src, s_dst, edges, slope, mask, keep):
+        out, m, l = _forward(z, s_src, s_dst, edges, slope, mask, keep)
+        ctx.edges, ctx.slope, ctx.keep = edges, slope, keep
+        ctx.save_for_backward(z, s_src, s_dst, m, l, out, mask)
         return out
 
     @staticmethod
     @once_differentiable
     def backward(ctx, grad_out):
-        z, s_src, s_dst, m, l, out = ctx.saved_tensors
+        z, s_src, s_dst, m, l, out, mask = ctx.saved_tensors
         e = ctx.edges
         with span("attn.bwd", device=True):
             _counts(e, z)
             before = _launches()
             g = grad_out.contiguous()
             q = rowdot(g, out, s_dst, m, l)
-            dz, ds_src, ds_dst = backward(e.t_row, e.t_col, q, s_src, z, g, e.nnz, ctx.slope)
+            extra = _masked(mask, ctx.keep)
+            if mask is not None:
+                extra["pos"] = e.positions()
+            dz, ds_src, ds_dst = backward(e.t_row, e.t_col, q, s_src, z, g, e.nnz, ctx.slope,
+                                          **extra)
             _count_launches(before)
-        return dz, ds_src, ds_dst, None, None
+        return dz, ds_src, ds_dst, None, None, None, None
 
 
 def _counts(edges, z) -> None:
@@ -370,30 +468,314 @@ def _count_launches(before: Tuple[int, int]) -> None:
     count("attn.row_launches", now[1] - before[1])
 
 
-def _forward(z, s_src, s_dst, edges, slope):
+def _forward(z, s_src, s_dst, edges, slope, mask=None, keep=1.0):
     with span("attn", device=True):
         _counts(edges, z)
+        if mask is not None:
+            count("attn.masked", int(mask.numel()))
         before = _launches()
         m, l = softmax_stats(edges.row, edges.col, s_src, s_dst, edges.nnz, slope)
-        out = aggregate(edges.row, edges.col, s_src, s_dst, m, l, z, edges.nnz, slope)
+        out = aggregate(edges.row, edges.col, s_src, s_dst, m, l, z, edges.nnz, slope,
+                        **_masked(mask, keep))
         _count_launches(before)
     return out, m, l
 
 
+def _check_mask(name: str, mask, heads: int, edges) -> None:
+    if mask is None:
+        return
+    if mask.dtype != torch.bool or tuple(mask.shape) != (heads, edges.nnz):
+        raise TypeError(f"{name}: mask must be bool [{heads}, {edges.nnz}] (heads, entries), "
+                        f"got {mask.dtype} {tuple(mask.shape)}")
+    _nvcc.check_operands(name, mask=mask, row=edges.row)
+
+
+def _keep(rate: float) -> float:
+    if not 0.0 <= rate < 1.0:
+        raise ValueError(f"attention dropout rate {rate} outside [0, 1)")
+    return 1.0 / (1.0 - rate)
+
+
 def gat_attention(z: torch.Tensor, s_src: torch.Tensor, s_dst: torch.Tensor, edges,
-                  negative_slope: float = 0.2) -> torch.Tensor:
+                  negative_slope: float = 0.2, mask=None, rate: float = 0.0) -> torch.Tensor:
     """The attention-weighted sum ``[N, H, C]`` of ``z`` over ``edges``, with
     gradients to ``z``, ``s_src`` and ``s_dst`` where grad mode wants them.
-    CUDA tensors run the kernels (counted in ``gat_attention.launches``:
-    three a forward pass, two a backward; by kernel in
-    ``gat_attention.kernel_launches``), CPU tensors the plain versions."""
+    ``mask`` (bool ``[H, E]`` by the row listing's entries, drawn at
+    ``rate``) drops the weights it does not keep and scales the others by
+    ``1 / (1 - rate)``; None drops none. CUDA tensors run the kernels
+    (counted in ``gat_attention.launches``: three a forward pass, two a
+    backward; by kernel in ``gat_attention.kernel_launches``), CPU tensors
+    the plain versions."""
     z, s_src, s_dst = z.contiguous(), s_src.contiguous(), s_dst.contiguous()
     _check(z, s_src, s_dst, edges)
-    slope = float(negative_slope)
+    _check_mask("gat_attention", mask, z.shape[1], edges)
+    slope, keep = float(negative_slope), _keep(float(rate))
     if torch.is_grad_enabled() and (z.requires_grad or s_src.requires_grad
                                     or s_dst.requires_grad):
-        return _GATAttention.apply(z, s_src, s_dst, edges, slope)
-    return _forward(z, s_src, s_dst, edges, slope)[0]
+        return _GATAttention.apply(z, s_src, s_dst, edges, slope, mask, keep)
+    return _forward(z, s_src, s_dst, edges, slope, mask, keep)[0]
+
+
+# -- per-edge scores: the graph-transformer attention --------------------------------
+
+
+def sddmm_plain(row, col, q, k, nnz: int, scale: float) -> torch.Tensor:
+    """``s[h, e] = scale * <q[row_e, h, :], k[col_e, h, :]>`` over the first
+    ``nnz`` entries, ``[H, nnz]``: :func:`ssrg_torch.ops.sddmm.sddmm` a head
+    at a time."""
+    r, c = row[:nnz], col[:nnz]
+    if not nnz:
+        return q.new_zeros((q.shape[1], 0))
+    return torch.stack([sddmm(r, c, q[:, h], k[:, h]) for h in range(q.shape[1])]) * scale
+
+
+def edge_sddmm(row, col, q, k, nnz: int, scale: float) -> torch.Tensor:
+    """:func:`sddmm_plain` on its kernel for CUDA tensors."""
+    if q.device.type != "cuda":
+        return sddmm_plain(row, col, q, k, nnz, scale)
+    n, h, c = q.shape
+    s = torch.empty((h, nnz), dtype=torch.float32, device=q.device)
+    if nnz and c:
+        with torch.cuda.device(q.device):
+            _launch("edge_sddmm_f32", row.data_ptr(), col.data_ptr(), q.data_ptr(), k.data_ptr(),
+                    s.data_ptr(), nnz, h, c, scale, edge_layout(c, _aligned(q, k)),
+                    _nvcc.stream_of(q))
+    elif nnz:
+        s.zero_()
+    return s
+
+
+def edge_stats_plain(row, s, n: int, nnz: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The row maxima ``m`` and sums ``l`` (``[n, H]``) of the softmax of the
+    per-edge scores ``s`` (``[H, nnz]``); a row without entries keeps
+    ``-inf`` and 0."""
+    h = s.shape[0]
+    m = torch.full((n, h), float("-inf"), dtype=torch.float32, device=s.device)
+    l = torch.zeros((n, h), dtype=torch.float32, device=s.device)
+    for a in range(0, nnz, CHUNK):
+        r, v = row[a:min(a + CHUNK, nnz)].long(), s[:, a:min(a + CHUNK, nnz)].T
+        m.scatter_reduce_(0, r[:, None].expand_as(v), v, "amax", include_self=True)
+    for a in range(0, nnz, CHUNK):
+        r, v = row[a:min(a + CHUNK, nnz)].long(), s[:, a:min(a + CHUNK, nnz)].T
+        l.index_add_(0, r, torch.exp(v - m[r]))
+    return m, l
+
+
+def edge_stats(row, s, n: int, nnz: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`edge_stats_plain` on its kernel (two launches) for CUDA
+    tensors."""
+    if s.device.type != "cuda":
+        return edge_stats_plain(row, s, n, nnz)
+    h = s.shape[0]
+    m = torch.full((n, h), float("-inf"), dtype=torch.float32, device=s.device)
+    l = torch.zeros((n, h), dtype=torch.float32, device=s.device)
+    if nnz:
+        with torch.cuda.device(s.device):
+            _launch("gat_stats_f32", row.data_ptr(), None, None, None, s.data_ptr(),
+                    m.data_ptr(), l.data_ptr(), nnz, h, 0.0, _nvcc.stream_of(s))
+    return m, l
+
+
+def edge_aggregate_plain(row, col, s, m, l, z, nnz: int, mask=None,
+                         keep: float = 1.0) -> torch.Tensor:
+    """``out[i, h, :] = sum of alpha~[e, h] * z[col_e, h, :]`` over the first
+    ``nnz`` entries, alpha from the per-edge scores ``s`` and the
+    statistics, times the mask's factor (:func:`_kept`)."""
+    out = torch.zeros_like(z)
+    step = _step(z)
+    for a in range(0, nnz, step):
+        b = min(a + step, nnz)
+        r, c = row[a:b].long(), col[a:b].long()
+        w = torch.exp(s[:, a:b].T - m[r]) / l[r]
+        if mask is not None:
+            w = w * _kept(mask, _places(None, a, b, r.device), keep)
+        out.index_add_(0, r, z[c] * w[..., None])
+    return out
+
+
+def edge_aggregate(row, col, s, m, l, z, nnz: int, mask=None, keep: float = 1.0) -> torch.Tensor:
+    """:func:`edge_aggregate_plain` on its kernel for CUDA tensors."""
+    if z.device.type != "cuda":
+        return edge_aggregate_plain(row, col, s, m, l, z, nnz, mask, keep)
+    out = torch.zeros_like(z)
+    n, h, c = z.shape
+    if nnz and c:
+        with torch.cuda.device(z.device):
+            _launch("gat_aggregate_f32", row.data_ptr(), col.data_ptr(), None, None,
+                    m.data_ptr(), l.data_ptr(), s.data_ptr(), _ptr(mask), None, keep,
+                    z.data_ptr(), out.data_ptr(), nnz, h, c, 0.0, EDGE_SCORES,
+                    edge_layout(c, _aligned(z, out)), _nvcc.stream_of(z))
+    return out
+
+
+def weighted_sum_plain(row, col, w, z, nnz: int, pos=None) -> torch.Tensor:
+    """``out[row_e, h, :] += w[h, x_e] * z[col_e, h, :]`` over the first
+    ``nnz`` listed entries, ``x_e`` the entry's place in the row listing
+    (``pos``; None: the listing is the row listing)."""
+    out = torch.zeros_like(z)
+    step = _step(z)
+    for a in range(0, nnz, step):
+        b = min(a + step, nnz)
+        r, c = row[a:b].long(), col[a:b].long()
+        out.index_add_(0, r, z[c] * w[:, _places(pos, a, b, r.device)].T[..., None])
+    return out
+
+
+def weighted_sum(row, col, w, z, nnz: int, pos=None) -> torch.Tensor:
+    """:func:`weighted_sum_plain` on its kernel for CUDA tensors."""
+    if z.device.type != "cuda":
+        return weighted_sum_plain(row, col, w, z, nnz, pos)
+    out = torch.zeros_like(z)
+    n, h, c = z.shape
+    if nnz and c:
+        with torch.cuda.device(z.device):
+            _launch("gat_aggregate_f32", row.data_ptr(), col.data_ptr(), None, None, None,
+                    None, w.data_ptr(), None, _ptr(pos), 1.0, z.data_ptr(), out.data_ptr(),
+                    nnz, h, c, 0.0, EDGE_WEIGHTS, edge_layout(c, _aligned(z, out)),
+                    _nvcc.stream_of(z))
+    return out
+
+
+def edge_backward_plain(t_row, t_col, pos, q4, s, z, g, nnz: int, mask=None, keep: float = 1.0,
+                        scale: float = 1.0):
+    """One pass over the transposed listing (source ``t_row``, destination
+    ``t_col``, ``pos`` each entry's place in the row listing): ``dz[j] =
+    sum of alpha~ * g[i]`` and ``ds[h, x] = scale * alpha * (k <g[i], z[j]>
+    - delta[i])``, k the mask's factor; ``q4`` the packed row values of
+    :func:`rowdot`. Returns ``(dz, ds)``, ``ds`` ``[H, nnz]`` by the row
+    listing's places."""
+    dz = torch.zeros_like(z)
+    ds = torch.zeros_like(s)
+    step = _step(z)
+    for a in range(0, nnz, step):
+        b = min(a + step, nnz)
+        j, i = t_row[a:b].long(), t_col[a:b].long()
+        x = _places(pos, a, b, j.device)
+        _sd, mi, li, delta = q4[i].unbind(-1)
+        alpha = torch.exp(s[:, x].T - mi) / li
+        kk = _kept(mask, x, keep)
+        gi = g[i]
+        dz.index_add_(0, j, gi * (alpha * kk)[..., None])
+        ds[:, x] = (scale * alpha * (kk * (gi * z[j]).sum(-1) - delta)).T
+    return dz, ds
+
+
+def edge_backward(t_row, t_col, pos, q4, s, z, g, nnz: int, mask=None, keep: float = 1.0,
+                  scale: float = 1.0):
+    """:func:`edge_backward_plain` on its kernel for CUDA tensors."""
+    if z.device.type != "cuda":
+        return edge_backward_plain(t_row, t_col, pos, q4, s, z, g, nnz, mask, keep, scale)
+    n, h, c = z.shape
+    dz = torch.zeros_like(z)
+    # every entry's ds is written: pos takes each place of the row listing once
+    ds = torch.empty_like(s) if nnz and c else torch.zeros_like(s)
+    if nnz and c:
+        with torch.cuda.device(z.device):
+            _launch("gat_backward_f32", t_row.data_ptr(), t_col.data_ptr(), None, q4.data_ptr(),
+                    s.data_ptr(), _ptr(mask), _ptr(pos), keep, z.data_ptr(), g.data_ptr(),
+                    dz.data_ptr(), None, None, ds.data_ptr(), scale, nnz, h, c, 0.0,
+                    EDGE_SCORES, edge_layout(c, _aligned(z, g, dz)), _nvcc.stream_of(z))
+    return dz, ds
+
+
+def _qk_launches(before: int) -> None:
+    count("attn.qk_launches", gat_attention.launches - before)
+
+
+def _dot_forward(q, k, v, edges, mask, keep: float, scale: float):
+    with span("attn", device=True):
+        _counts(edges, q)
+        if mask is not None:
+            count("attn.masked", int(mask.numel()))
+        before = _launches()
+        with span("attn.qk", device=True):
+            qk = gat_attention.launches
+            s = edge_sddmm(edges.row, edges.col, q, k, edges.nnz, scale)
+            _qk_launches(qk)
+        m, l = edge_stats(edges.row, s, q.shape[0], edges.nnz)
+        out = edge_aggregate(edges.row, edges.col, s, m, l, v, edges.nnz, mask, keep)
+        _count_launches(before)
+    return out, s, m, l
+
+
+class _DotAttention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, edges, mask, keep, scale):
+        out, s, m, l = _dot_forward(q, k, v, edges, mask, keep, scale)
+        ctx.edges, ctx.keep, ctx.scale = edges, keep, scale
+        ctx.save_for_backward(q, k, v, s, m, l, out, mask)
+        return out
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, grad_out):
+        q, k, v, s, m, l, out, mask = ctx.saved_tensors
+        e = ctx.edges
+        with span("attn.bwd", device=True):
+            _counts(e, q)
+            before = _launches()
+            g = grad_out.contiguous()
+            q4 = rowdot(g, out, None, m, l)
+            pos = e.positions()
+            dv, ds = edge_backward(e.t_row, e.t_col, pos, q4, s, v, g, e.nnz, mask, ctx.keep,
+                                   ctx.scale)
+            del q4
+            with span("attn.qk.bwd", device=True):
+                qk = gat_attention.launches
+                dq = weighted_sum(e.row, e.col, ds, k, e.nnz)
+                dk = weighted_sum(e.t_row, e.t_col, ds, q, e.nnz, pos)
+                _qk_launches(qk)
+            _count_launches(before)
+        return dq, dk, dv, None, None, None, None
+
+
+def _check_dot(q, k, v, edges) -> None:
+    if q.dim() != 3:
+        raise TypeError(f"dot_attention: q must be [N, H, C], got {tuple(q.shape)}")
+    for name, t in (("k", k), ("v", v)):
+        if tuple(t.shape) != tuple(q.shape):
+            raise TypeError(f"dot_attention: {name} must be {tuple(q.shape)}, got "
+                            f"{tuple(t.shape)}")
+    if any(t.dtype != torch.float32 for t in (q, k, v)):
+        raise TypeError("dot_attention: q, k and v must be float32")
+    if edges.t_row is None or edges.nnz is None:
+        raise TypeError("dot_attention: edges must carry the transposed listing "
+                        "(EdgeList.attention)")
+    if edges.num_nodes != q.shape[0]:
+        raise TypeError(f"dot_attention: edges of {edges.num_nodes} nodes, q of {q.shape[0]}")
+    for name in ("row", "col", "t_row", "t_col"):
+        if getattr(edges, name).dtype != torch.int32:
+            raise TypeError(f"dot_attention: edges.{name} must be int32")
+    if q.device.type == "cuda" and q.shape[2] > MAX_HEAD_WIDTH:
+        raise TypeError(f"dot_attention: a head of {q.shape[2]} features; the kernels take at "
+                        f"most {MAX_HEAD_WIDTH}")
+    _nvcc.check_operands("dot_attention", q=q, k=k, v=v, row=edges.row, col=edges.col,
+                         t_row=edges.t_row, t_col=edges.t_col)
+
+
+def dot_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, edges, mask=None,
+                  rate: float = 0.0) -> torch.Tensor:
+    """The graph-transformer attention ``[N, H, C]`` over ``edges`` (an
+    attention listing, with or without self-loops): per-edge scores
+    ``<q[i, h], k[j, h]> / sqrt(C)``,
+    their softmax over each row's entries, the weights the ``mask`` (bool
+    ``[H, E]`` by the row listing's entries, drawn at ``rate``) keeps scaled
+    by ``1 / (1 - rate)`` and the others dropped, and the weighted sum of
+    ``v``; a row without entries gives 0. Gradients to q, k and v where grad
+    mode wants them. CUDA tensors run the kernels (four launches a forward
+    pass: ``sddmm_kernel``, ``gat_stats_kernel`` twice, ``gat_aggregate_kernel``;
+    four a backward: ``gat_rowdot_kernel``, ``gat_backward_kernel``, and
+    ``gat_aggregate_kernel`` for dq and for dk), CPU tensors the plain
+    versions. The spans ``attn`` and ``attn.bwd`` hold ``attn.qk`` and
+    ``attn.qk.bwd``, the scores and their gradient (dq, dk), which count
+    ``attn.qk_launches``."""
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    _check_dot(q, k, v, edges)
+    _check_mask("dot_attention", mask, q.shape[1], edges)
+    keep, scale = _keep(float(rate)), 1.0 / math.sqrt(q.shape[2])
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        return _DotAttention.apply(q, k, v, edges, mask, keep, scale)
+    return _dot_forward(q, k, v, edges, mask, keep, scale)[0]
 
 
 # -- the scores ------------------------------------------------------------------

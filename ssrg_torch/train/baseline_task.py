@@ -1,6 +1,6 @@
 """Baseline pipeline trainer (counterpart of ``ssrg_tpu/train/baseline_task.py``).
 
-Choose a model (MLP, robust MLP, GCN, SAGE, GAT, SGC, SIGN), run it
+Choose a model (MLP, robust MLP, GCN, SAGE, GAT, UniMP, SGC, SIGN), run it
 ``runs`` times, each run full-batch epochs with best-val selection through
 :class:`ssrg_torch.logger.RunLogger`; or, for GCN, SAGE and GAT, train on
 cluster minibatches.
@@ -32,7 +32,7 @@ import scipy.sparse as sp
 import torch
 
 from ssrg_torch.configs.config import TrainingConfig
-from ssrg_torch.logger import RunLogger, span
+from ssrg_torch.logger import RunLogger, count, span
 from ssrg_torch.models.baselines import (
     BaselineGAT,
     BaselineGCN,
@@ -40,6 +40,7 @@ from ssrg_torch.models.baselines import (
     BaselineSAGE,
     BaselineSGC,
     BaselineSIGN,
+    BaselineUniMP,
     EdgeList,
     RobustMLP,
     triplet_loss,
@@ -171,9 +172,19 @@ class BaselineTask:
     reference's form over its padded list) and ``attn_dropout``, the rate
     the attention's weights are dropped at (None: the form's own, the
     feature rate in the reference's, 0 in the published one). Its edges
-    are built in the span ``prepare.edges``."""
+    are built in the span ``prepare.edges``.
 
-    MODELS = ("mlp", "robust_mlp", "gcn", "sage", "gat", "sgc", "sign")
+    UniMP (``models/baselines.py::BaselineUniMP``) takes ``heads``,
+    ``attn_dropout`` (None: 0) and ``label_rate``, which it requires, and
+    no feature dropout (the published stack has none: ``dropout`` is not
+    read). Its listing, built in ``prepare.edges``, has no self-loops, and
+    the places of its transposed entries are found there too. Each training
+    step draws, from the train state's generator, which train nodes feed
+    their labels (each with probability ``label_rate``, PyG's
+    ``MaskLabel.ratio_mask``, counted in ``labels.fed``) and takes the loss
+    over the others; evaluation feeds every train label."""
+
+    MODELS = ("mlp", "robust_mlp", "gcn", "sage", "gat", "unimp", "sgc", "sign")
 
     def __init__(
         self,
@@ -194,9 +205,12 @@ class BaselineTask:
         heads: int = 8,
         published: bool = False,
         attn_dropout: Optional[float] = None,
+        label_rate: Optional[float] = None,
     ):
         if model_name not in self.MODELS:
             raise ValueError(f"unknown baseline {model_name!r}; available: {self.MODELS}")
+        if model_name == "unimp" and not (label_rate is not None and 0.0 <= label_rate <= 1.0):
+            raise ValueError(f"unimp: label_rate must be given, in [0, 1]; got {label_rate}")
         if cluster_parts is not None and model_name not in ("gcn", "sage", "gat"):
             raise ValueError(
                 "cluster minibatching applies to the full-graph models "
@@ -213,6 +227,7 @@ class BaselineTask:
             self.triplet_weight = triplet_weight
             self.logger = RunLogger(runs)
             self.num_classes = dataset.num_classes
+            self.label_rate = label_rate
             self.history: dict = {}
             self.state: Optional[TrainState] = None
 
@@ -246,6 +261,14 @@ class BaselineTask:
                 self.module = BaselineGAT(f, hidden_dim, c, num_layers, heads=heads,
                                           dropout=dropout, published=published,
                                           attn_dropout=attn_dropout)
+            elif model_name == "unimp":
+                adj = dataset.adj  # its own span, prepare.adjacency, outside prepare.edges
+                with span("prepare.edges"):
+                    edges = EdgeList.attention(adj, self_loops=False).to(dev)
+                    edges.positions()
+                self.adj_op = edges
+                self.module = BaselineUniMP(f, hidden_dim, c, num_layers, heads=heads,
+                                            attn_dropout=attn_dropout or 0.0)
             elif model_name in ("sgc", "sign"):
                 adj = dataset.adj
                 with span("prepare.normalize"):
@@ -280,16 +303,31 @@ class BaselineTask:
 
     # ------------------------------------------------------------------
 
-    def _forward(self, module, inputs, adj):
+    def _forward(self, module, inputs, adj, fed=None):
+        if self.model_name == "unimp":
+            return module(inputs, adj, self.labels, self.idx["train"] if fed is None else fed)
         return module(inputs) if adj is None else module(inputs, adj)
+
+    def label_split(self, state: TrainState):
+        """UniMP's split of the train nodes for one step, drawn from the
+        state's generator: ``(fed, supervised)``, the nodes whose labels are
+        input and those the loss is taken over."""
+        tr = self.idx["train"]
+        fed = torch.rand(tr.shape, generator=state.generator, device=tr.device) < self.label_rate
+        fed_idx, sup = tr[fed], tr[~fed]
+        count("labels.fed", int(fed_idx.numel()))
+        return fed_idx, sup
 
     def train_step(self, state: TrainState) -> torch.Tensor:
         """One full-graph update; the loss, detached, on the device. The
         spans of :func:`~ssrg_torch.train.common.train_step`."""
         module = state.module.train()
         with span("step.forward"):
-            out = self._forward(module, self.inputs, self.adj_op)
             tr = self.idx["train"]
+            fed = None
+            if self.model_name == "unimp":
+                fed, tr = self.label_split(state)
+            out = self._forward(module, self.inputs, self.adj_op, fed)
             if self.model_name == "robust_mlp":
                 hidden, logp = out
                 loss = -logp[tr].gather(1, self.labels[tr][:, None]).mean()

@@ -676,16 +676,40 @@ def test_baseline_task_trains_the_published_form_through_the_kernels(cuda_device
 
 
 @pytest.mark.cuda
-def test_attention_dropout_above_zero_raises_on_the_card(cuda_device, data):
-    """The kernels drop no weights: a card's training pass over the
-    attention listing at a rate above 0 raises rather than fall back to
-    per-edge messages; evaluation runs the kernels."""
-    module = BaselineGAT(F_IN, 8, 47, 3, heads=4, published=True,
+def test_attention_dropout_above_zero_runs_the_kernels_on_the_card(cuda_device, data):
+    """A card's training pass over the attention listing at a rate above 0
+    draws each layer's mask and runs the kernels that read it (three
+    launches a layer forward, by name the masked weighted sum's), with the
+    output of the plain versions on the CPU given the same masks;
+    evaluation draws none."""
+    module = BaselineGAT(F_IN, 8, 47, 3, heads=4, dropout=0.0, published=True,
                          attn_dropout=0.6).to(cuda_device)
     edges = EdgeList.attention(_adj(data)).to(cuda_device)
     x = data.x.to(cuda_device)
-    with pytest.raises(ValueError, match="attention dropout 0.6"):
-        module.train()(x, edges)
+    bind_generator(module.train(), torch.Generator(device=cuda_device).manual_seed(4))
+    before = ga.gat_attention.launches
+    out = module(x, edges)
+    assert ga.gat_attention.launches - before == 3 * ga.FORWARD_LAUNCHES
+    cpu = BaselineGAT(F_IN, 8, 47, 3, heads=4, dropout=0.0, published=True, attn_dropout=0.6)
+    cpu.load_state_dict({k: v.cpu() for k, v in module.state_dict().items()})
+    gen = torch.Generator(device=cuda_device).manual_seed(4)
+    masks = [torch.rand((4, edges.nnz), generator=gen, device=cuda_device) < 0.4
+             for _ in range(3)]
+    original = ga.gat_attention
+
+    def with_masks(z, s_src, s_dst, edges_, slope, mask, rate):
+        assert mask is not None
+        return original(z, s_src, s_dst, edges_, slope, masks.pop(0).cpu(), rate)
+
+    from ssrg_torch.models import baselines
+
+    baselines.gat_attention = with_masks
+    try:
+        bind_generator(cpu.train(), torch.Generator().manual_seed(0))
+        want = cpu(data.x, edges.to("cpu"))
+    finally:
+        baselines.gat_attention = original
+    assert _gap(out.detach().cpu(), want.detach()) <= 1e-5
     before = ga.gat_attention.launches
     with torch.no_grad():
         out = module.eval()(x, edges)

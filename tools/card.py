@@ -77,7 +77,7 @@ def hold(name: str, out_k, out_p, tol) -> float:
     version elementwise. Returns the largest absolute difference."""
     import torch
 
-    diff = (out_k - out_p).abs()
+    diff = (out_k - out_p).abs_()  # in place: an operand may be several GB
     max_abs_err = float(diff.max()) if diff.numel() else 0.0
     check(bool(torch.isfinite(out_k).all()), f"{name}: kernel output not finite")
     check(bool((diff <= tol).all()), f"{name}: kernel vs plain beyond the sum-order bound "

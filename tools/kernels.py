@@ -4,7 +4,7 @@ and time them and variants of their constants.
 
     python3 tools/kernels.py [--kernel ell,coo,banded,rest,gat]
                              [--variants NAME,NAME,...] [--seed N]
-                             [--parts attention,scores]
+                             [--parts attention,scores,edges]
 
 Each entry of ``KERNELS`` names a kernel's wrapper module, its variants
 (``constexpr int`` constants of its source set to other values) and its
@@ -40,7 +40,12 @@ gathers; ``gat`` with ``--parts attention`` the four attention steps
 graph's attention listing and the ``gat-products-fullbatch`` cell's, with
 ``--parts scores`` the score steps (``scores``, ``score_grad``) on a z of
 each graph's rows, all at the cell's head widths, 4 heads of 128 and 4 of
-47. At 4 heads of 47 the source's weighted sum and backward pass take the
+47, and with ``--parts edges`` the graph-transformer attention's steps
+(``sddmm``, ``edge_stats``, ``edge_aggregate``, ``rowdot``,
+``edge_backward``, ``weighted_sum_dq``, ``weighted_sum_dk``) on the
+``unimp-products-fullbatch`` cell's listing, no self-loops, its weights
+dropped at 0.3, with ``torch.sparse.sampled_addmm`` as the scores' library
+call. At 4 heads of 47 the source's weighted sum and backward pass take the
 whole-row path and the ``per_head`` variant the per-head scalar lanes. The
 ``aggregate`` records also time the aggregation on the ELL and COO kernels,
 alpha as their values, one head at a time (``reuse_hybrid_kernels``).
@@ -74,6 +79,7 @@ GAT_SHAPES = ((4, 128), (4, 47))  # (heads, head width): the GAT cell's hidden l
 GAT_SLOPE = 0.2
 CELL_GCN = os.path.join(ROOT, "portbench", "configs", "gcn-products.json")
 CELL_GAT = os.path.join(ROOT, "portbench", "configs", "gat-products.json")
+CELL_UNIMP = os.path.join(ROOT, "portbench", "configs", "unimp-products.json")
 
 
 @dataclasses.dataclass
@@ -129,9 +135,10 @@ def headline_and_powerlaw():
                                                                                   device="cuda")
 
 
-def cell_pairs(config: str, seed: int):
-    """The cell's ``A + I`` on the card as ``portbench/`` draws it from
-    ``seed``: rows and columns sorted by row, and the node count."""
+def cell_pairs(config: str, seed: int, self_loops: bool = True):
+    """The cell's ``A + I`` (``A`` without ``self_loops``) on the card as
+    ``portbench/`` draws it from ``seed``: rows and columns sorted by row,
+    and the node count."""
     import torch
 
     from portbench.graphs import make_graph
@@ -140,7 +147,7 @@ def cell_pairs(config: str, seed: int):
         cfg = json.load(f)
     data = make_graph(cfg["dataset"], cfg["graph"], seed, "cuda")
     n = data.num_nodes
-    loops = torch.arange(n, device="cuda")
+    loops = torch.arange(n if self_loops else 0, device="cuda")
     key = torch.sort(torch.cat([data.lo * n + data.hi, data.hi * n + data.lo,
                                 loops * n + loops])).values
     del data, loops
@@ -425,6 +432,126 @@ def attention_steps(edges, h: int, c: int, gen) -> list:
     ]
 
 
+def edge_steps(edges, h: int, c: int, rate: float, gen) -> list:
+    """The graph-transformer attention's steps on the listing ``edges`` (no
+    self-loops) at ``h`` heads of ``c``: the per-edge scores, their
+    statistics, the weighted sum of v with the weights dropped at ``rate``
+    (the UniMP cell's), the row dot, the backward pass (dv and the scores'
+    gradient), and the weighted sums of the scores' gradient (dq over the
+    rows, dk over the transposed listing at its places); random q, k, v, g.
+
+    Tolerances, elementwise, k a node's entries (the listing is symmetric),
+    u = 2^-24 and T = 16 + 2 max|s - m| as for GAT's steps: the scores ``2
+    (c + 1) u scale sum |q k|``; the maxima exact; the sums ``(2k + T) u
+    l``; the weighted sum ``(2k + T) u sum alpha~ |v|``; the row dot as
+    GAT's; dv ``(2k + T) u sum alpha~ |g|``; the scores' gradient ``(2c + T
+    + 6) u scale alpha (keep sum |g v| + |delta|)``; dq and dk ``(2k + 4) u
+    sum |w| |row|``. The library's time is ``torch.sparse.sampled_addmm`` on
+    the listing's CSR, a head at a time (one head's copies, called once a
+    head), for the scores."""
+    import torch
+
+    from ssrg_torch.ops import gat_attention as ga
+
+    u, n, e = card.UNIT_ROUNDOFF, edges.num_nodes, edges.nnz
+    row, col, t_row, t_col = edges.row, edges.col, edges.t_row, edges.t_col
+    pos = edges.positions()
+    q, k, v, g = (torch.randn((n, h, c), generator=gen, device="cuda") for _ in range(4))
+    scale, keep = 1.0 / c ** 0.5, 1.0 / (1.0 - rate)
+    mask = torch.rand((h, e), generator=gen, device="cuda") < 1.0 - rate
+    deg = torch.bincount(row.long(), minlength=n).float()[:, None]
+    card.check(torch.equal(torch.bincount(t_row.long(), minlength=n).float()[:, None], deg),
+               "the listing is not symmetric: the tolerances take k for both ends")
+    s = ga.sddmm_plain(row, col, q, k, e, scale)
+    m, l = ga.edge_stats_plain(row, s, n, e)
+    out = ga.edge_aggregate_plain(row, col, s, m, l, v, e, mask, keep)
+    q4 = ga.rowdot_plain(g, out, None, m, l)
+    ds = ga.edge_backward_plain(t_row, t_col, pos, q4, s, v, g, e, mask, keep, scale)[1]
+    finite_m = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
+    t = 16.0 + 2.0 * float((s.T - finite_m[row.long()]).abs().amax())
+
+    # the tolerances are formed in place on the magnitudes: at the cell's size
+    # each [N, H, C] operand is 4.9 GB
+    def sddmm_ref():
+        mag = ga.sddmm_plain(row, col, q.abs(), k.abs(), e, scale)
+        return s, mag.mul_(2 * (c + 1) * u).add_(1e-30)
+
+    def stats_ref():  # maxima of rows without entries (-inf) held as 0
+        return (finite_m, l), (torch.full_like(m, 1e-30), (2 * deg + t) * u * l + 1e-30)
+
+    def stats_held():
+        mk, lk = ga.edge_stats(row, s, n, e)
+        return torch.where(torch.isfinite(mk), mk, torch.zeros_like(mk)), lk
+
+    def aggregate_ref():
+        mag = ga.edge_aggregate_plain(row, col, s, m, l, v.abs(), e, mask, keep)
+        return out, mag.mul_((2 * deg[..., None] + t) * u).add_(1e-30)
+
+    def rowdot_ref():
+        tol = torch.full_like(q4, 1e-30)
+        tol[..., 3] += 2 * (c + 1) * u * (g * out).abs().sum(-1)
+        return q4, tol
+
+    def backward_ref():
+        q4_abs = q4.clone()
+        q4_abs[..., 3] = -q4[..., 3].abs()
+        mag_dv, mag_ds = ga.edge_backward_plain(t_row, t_col, pos, q4_abs, s, v.abs(), g.abs(),
+                                                e, mask, keep, scale)
+        dv = ga.edge_backward_plain(t_row, t_col, pos, q4, s, v, g, e, mask, keep, scale)[0]
+        return (dv, ds), (mag_dv.mul_((2 * deg[..., None] + t) * u).add_(1e-30),
+                          mag_ds.abs_().mul_((2 * c + t + 6) * u).add_(1e-30))
+
+    def sum_ref(rows, cols, z, places):
+        def ref():
+            want = ga.weighted_sum_plain(rows, cols, ds, z, e, places)
+            mag = ga.weighted_sum_plain(rows, cols, ds.abs(), z.abs(), e, places)
+            return want, mag.mul_((2 * deg[..., None] + 4) * u).add_(1e-30)
+        return ref
+
+    crow = torch.zeros(n + 1, dtype=torch.int64, device="cuda")
+    crow[1:] = torch.cumsum(torch.bincount(row.long(), minlength=n), 0)
+    template = torch.sparse_csr_tensor(crow, col.long(), torch.zeros(e, device="cuda"), (n, n))
+    # one head's copies, its call made once a head: every head is the same work
+    q_head, k_head = q[:, 0].contiguous(), k[:, 0].t().contiguous()
+
+    def library():
+        return [torch.sparse.sampled_addmm(template, q_head, k_head, beta=0.0, alpha=scale)
+                for _ in range(h)]
+
+    f32, nh, nhc, eh = 4, n * h, n * h * c, e * h
+    info = {"nodes": n, "entries": e, "heads": h, "c": c, "max_row_entries": int(deg.max()),
+            "t": t, "attn_dropout": rate}
+    return [  # compulsory bytes: the listings, each operand and result once
+        Step("sddmm", lambda: ga.edge_sddmm(row, col, q, k, e, scale),
+             lambda: ga.sddmm_plain(row, col, q, k, e, scale), sddmm_ref,
+             f32 * (2 * e + 2 * nhc + eh), 2.0 * e * h * c, gathers=e * h * c * 4,
+             library=library, info=info),
+        Step("edge_stats", lambda: ga.edge_stats(row, s, n, e),
+             lambda: ga.edge_stats_plain(row, s, n, e), stats_ref,
+             f32 * (2 * e + 2 * eh + 3 * nh), 4.0 * e * h, info=info, held=stats_held),
+        Step("edge_aggregate", lambda: ga.edge_aggregate(row, col, s, m, l, v, e, mask, keep),
+             lambda: ga.edge_aggregate_plain(row, col, s, m, l, v, e, mask, keep),
+             aggregate_ref, f32 * (2 * e + eh + 2 * nhc + 2 * nh) + eh, 2.0 * e * h * c,
+             gathers=e * h * c * 4, info=info),
+        Step("rowdot", lambda: ga.rowdot(g, out, None, m, l),
+             lambda: ga.rowdot_plain(g, out, None, m, l), rowdot_ref,
+             f32 * (2 * nhc + 6 * nh), 2.0 * nhc, info=info),
+        Step("edge_backward",
+             lambda: ga.edge_backward(t_row, t_col, pos, q4, s, v, g, e, mask, keep, scale),
+             lambda: ga.edge_backward_plain(t_row, t_col, pos, q4, s, v, g, e, mask, keep,
+                                            scale),
+             backward_ref, f32 * (3 * e + 2 * eh + 4 * nh + 3 * nhc) + eh, 4.0 * e * h * c,
+             gathers=e * h * c * 4, info=info),
+        Step("weighted_sum_dq", lambda: ga.weighted_sum(row, col, ds, k, e),
+             lambda: ga.weighted_sum_plain(row, col, ds, k, e), sum_ref(row, col, k, None),
+             f32 * (2 * e + eh + 2 * nhc), 2.0 * e * h * c, gathers=e * h * c * 4, info=info),
+        Step("weighted_sum_dk", lambda: ga.weighted_sum(t_row, t_col, ds, q, e, pos),
+             lambda: ga.weighted_sum_plain(t_row, t_col, ds, q, e, pos),
+             sum_ref(t_row, t_col, q, pos), f32 * (3 * e + eh + 2 * nhc), 2.0 * e * h * c,
+             gathers=e * h * c * 4, info=info),
+    ]
+
+
 def reuse_design(row, col, n: int, s_src, s_dst, m, l, z, want) -> dict:
     """The aggregation on the ELL kernel and the COO tail kernel, alpha as
     their values, one head at a time (an ELL pack of the first W entries of
@@ -542,6 +669,19 @@ def gat_cases(args):
         yield "gat_cell", EdgeList(row, col, None, n, int(row.numel()), row, col)
 
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
+    if "edges" in args.parts:
+        rows, cols, n = cell_pairs(CELL_UNIMP, args.seed, self_loops=False)
+        row, col = rows.int(), cols.int()
+        del rows, cols
+        # the cell's structure is symmetric: the listing is its own transpose
+        edges = EdgeList(row, col, None, n, int(row.numel()), row, col)
+        with open(CELL_UNIMP) as f:
+            rate = float(json.load(f)["attn_dropout"])
+        for h, c in GAT_SHAPES:
+            yield f"unimp_cell_listing_h{h}_c{c}", edge_steps(edges, h, c, rate, gen)
+            torch.cuda.empty_cache()
+        del edges, row, col
+        torch.cuda.empty_cache()
     if "attention" in args.parts:
         for name, edges in listings():
             for h, c in GAT_SHAPES:
@@ -609,7 +749,7 @@ def measure(key: str, kernel: Kernel, module, libs: dict, case: str, steps: list
             got = as_tuple((step.held or step.run)())
             errs[step.name][v] = max(card.hold(f"{key} {case} {step.name} ({v})", a, b, tol)
                                      for a, b, tol in zip(got, want, tols))
-            over[step.name][v] = max(float(((a - b).abs() / tol).max()) if a.numel() else 0.0
+            over[step.name][v] = max(float((a - b).abs_().div_(tol).max()) if a.numel() else 0.0
                                      for a, b, tol in zip(got, want, tols))
             del got
         del want, tols
@@ -645,9 +785,10 @@ def main() -> int:
                              "every variant of each kernel)")
     parser.add_argument("--seed", type=int, default=0,
                         help="draws the benchmark cells' graphs and the random operands")
-    parser.add_argument("--parts", default="attention,scores",
+    parser.add_argument("--parts", default="attention,scores,edges",
                         help="gat: attention (the attention's steps on the listings), scores "
-                             "(the score steps on a z of each graph's rows)")
+                             "(the score steps on a z of each graph's rows), edges (the "
+                             "graph-transformer attention's steps on the UniMP cell's listing)")
     args = parser.parse_args()
     keys = args.kernel.split(",")
     unknown = sorted(set(keys) - set(KERNELS))
